@@ -10,10 +10,14 @@ Phases (every one must pass; none is caught):
 2. kernels — each of K1-K5 against its plain PyTorch version at the main
    path's shapes, within its stated tolerance (K1 also: zeros in the same
    places, two launches bit-equal, and untimed checks at the full-width
-   shape and at m = 3); CUDA-event times (median of 25) of the kernel, of
-   the plain version and, for K1 and K4, of the library chain (one batched
-   matmul against a prebuilt one-hot plus the fold); the least time the
-   card could take for the same work (``bound_ms``).
+   shape and at m = 3; K4 at the finalize's instance batch, which is all the
+   default path sends it, and also checked and timed at the larger batches
+   of exact_soft=False, and checked, untimed, with quality-weighted count
+   values and at the full-width shape, two launches bit-equal); CUDA-event
+   times (median of 25) of the kernel, of the plain version and, for K1 and
+   K4, of the library chain (one batched matmul against a prebuilt one-hot
+   plus the fold); the least time the card could take for the same work
+   (``bound_ms``).
 3. parity  — the port's p-iteration on CUDA vs the same on the CPU (plain
    versions) on the 120 kb simulation of tests/test_pipeline.py, at the
    production default and at exact_soft=False: aligner outputs must be
@@ -60,9 +64,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 SHIFT, CUT = em._CASCADE_SHIFT, em._CASCADE_CUT
 # the main path's shapes: the scan batch of the (512, 128) bucket (instances,
-# reads, read length, band width); the aligner's extend step (genome, reads,
+# reads, read length, band width); the instance batch of its finalize, the
+# only one K4 sees at the default, and the other batches below the scan's
+# that K4 sees at exact_soft=False; the aligner's extend step (genome, reads,
 # candidates); the unmapped mode's 512-read bucket (reads, gap bucket)
 SCAN_SHAPE = (495, 128, 101, 128)
+FINALIZE_BATCH = 64
+PARTIAL_BATCHES = (128, 256)
 ALIGN_SHAPE = (4_600_000, 32768, 32)
 FULL_WIDTH = (512, 512)
 
@@ -171,6 +179,23 @@ def check_cascade(lw, codes, vals, W, m, what):
     return err
 
 
+def check_fold(weights, codes, vals, W, what):
+    """K4 against its plain version: rtol 2e-6 (the sum order differs),
+    atol 0, two launches bit-equal."""
+    got = band.fold_counts(weights, codes, vals, W)
+    want = band.fold_counts_plain(weights, codes, vals, W)
+    again = band.fold_counts(weights, codes, vals, W)
+    torch.cuda.synchronize()
+    err, ok = close(got, want, 2e-6, 0.0)
+    repeat = torch.equal(got, again)
+    log(f"fold {what}: shape {tuple(got.shape)}, max_abs_err {err:.3g} on "
+        f"counts up to {float(want.max()):.3g} (rtol 2e-6, atol 0), repeat "
+        f"bit-equal {repeat}")
+    if not (ok and repeat):
+        raise AssertionError(f"fold {what} disagrees with its plain version "
+                             f"(max abs err {err}, repeat {repeat})")
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -218,8 +243,11 @@ def phase_kernels():
                      for i in range(3)]
         return torch.stack(outs, dim=1)
 
-    f_ohT = band.oh_flat_c(codes, vals).transpose(1, 2).contiguous()
-    f_ops = 2 * int(((weights != 0).sum(-1) * n_val).sum())
+    # K4 at the finalize's batch: the first instances of the scan's arrays
+    n_f = FINALIZE_BATCH
+    f_w, f_codes, f_vals = weights[:n_f], codes[:n_f], vals[:n_f]
+    f_ohT = band.oh_flat_c(f_codes, f_vals).transpose(1, 2).contiguous()
+    f_ops = 2 * int(((f_w != 0).sum(-1) * n_val[:n_f]).sum())
 
     # K5: reads x candidates at read length L on the bench genome's size
     G, B, C = ALIGN_SHAPE
@@ -260,10 +288,10 @@ def phase_kernels():
          None, nbytes(codes, valid, Kh) + out_f32, n_score * bw),
         ("fold", "figbird_tpu_torch/csrc/fold.cu",
          "figbird_tpu/ops/band.py:320", 2e-6, 0.0,
-         lambda: band.fold_counts(weights, codes, vals, R),
-         lambda: band.fold_counts_plain(weights, codes, vals, R),
-         lambda: band.fold_T(torch.bmm(f_ohT, weights), L, R),
-         nbytes(weights, codes, vals) + I * R * 5 * 4, f_ops),
+         lambda: band.fold_counts(f_w, f_codes, f_vals, R),
+         lambda: band.fold_counts_plain(f_w, f_codes, f_vals, R),
+         lambda: band.fold_T(torch.bmm(f_ohT, f_w), L, R),
+         nbytes(f_w, f_codes, f_vals) + n_f * R * 5 * 4, f_ops),
         # a compare, a score add and a running-minimum update per base
         ("align_score", "figbird_tpu_torch/csrc/align_score.cu",
          "figbird_tpu/ops/align_score.py:40", 0.0, 0.0,
@@ -286,11 +314,13 @@ def phase_kernels():
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version (max abs err {err})")
             del got, want
-        # plain, kernel, kernel, plain: both orders inside one call
+        # library, plain, kernel, kernel, plain, library: both orders inside
+        # one call, the better of each pair
+        l1 = cuda_ms(lib) if lib is not None else None
         p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                           cuda_ms(plain))
         ms, plain_ms = min(k1, k2), min(p1, p2)
-        library_ms = cuda_ms(lib) if lib is not None else None
+        library_ms = min(l1, cuda_ms(lib)) if lib is not None else None
         bound_ms, bound_by = bound(n_b, n_o)
         log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
             f"kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} "
@@ -302,7 +332,26 @@ def phase_kernels():
                          launches=0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms))
-    del lw, c_codes, c_vals, c_ohT, f_ohT, Kh, weights
+    # K4 at the larger batches exact_soft=False sends it, up to the scan's
+    for n in (*PARTIAL_BATCHES, I):
+        w_n, c_n, v_n = weights[:n], codes[:n], vals[:n]
+        check_fold(w_n, c_n, v_n, R, f"banded, {n} instances")
+        ohT = band.oh_flat_c(c_n, v_n).transpose(1, 2).contiguous()
+        log(f"fold banded, {n} instances: kernel "
+            f"{cuda_ms(lambda: band.fold_counts(w_n, c_n, v_n, R)):.3f} ms, "
+            f"plain "
+            f"{cuda_ms(lambda: band.fold_counts_plain(w_n, c_n, v_n, R)):.3f}"
+            f" ms, library "
+            f"{cuda_ms(lambda: band.fold_T(torch.bmm(ohT, w_n), L, R)):.3f}"
+            f" ms")
+        del ohT
+    # K4, untimed: quality-error weights as count values (the finalize's
+    # quality sums), not 0/1
+    check_fold(f_w, f_codes, f_vals * rand(n_f, P, L) * 1e-2, R,
+               f"banded, {n_f} instances, quality-weighted values")
+    check_fold(weights, codes, vals * rand(I, P, L) * 1e-2, R,
+               "banded, quality-weighted values")
+    del lw, c_codes, c_vals, c_ohT, f_ohT, Kh, weights, f_w
     torch.cuda.empty_cache()
 
     # K1, untimed: the mini-cascade depth, and the full-width shape of the
@@ -313,8 +362,15 @@ def phase_kernels():
     n_u, gb = FULL_WIDTH
     Wp = L + gb
     ib = min(I, int(1.5e9) // (n_u * (5 * L + 4 * Wp) * 8))
-    check_cascade(*cascade_inputs(g, ib, n_u, L, Wp), Wp + L, 6,
+    lw, c_codes, c_vals = cascade_inputs(g, ib, n_u, L, Wp)
+    check_cascade(lw, c_codes, c_vals, Wp + L, 6,
                   f"full width, {n_u} reads, m = 6")
+    # K4 at the same shape: the core both kernels share will serve that mode
+    del lw
+    weights = torch.where(rand(ib, n_u, Wp) < 0.5, 0.0, rand(ib, n_u, Wp))
+    check_fold(weights, c_codes, c_vals, Wp + L,
+               f"full width, {n_u} reads")
+    del weights, c_codes, c_vals
     torch.cuda.empty_cache()
     return rows
 

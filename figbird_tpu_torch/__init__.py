@@ -12,7 +12,9 @@ needs (``dtypes``, ``genome``, ``config``, ``simulate``, ``io``,
 :mod:`.convert` carries the reference's objects across for the tests.
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
-CUDA kernel for CUDA tensors.
+CUDA kernel for CUDA tensors.  The entry points (``Pipeline``, ``Aligner``,
+``fill_gaps``) run on the card unless the caller passes ``device="cpu"``;
+without a card and without that argument they raise.
 """
 
 __version__ = "0.2.0"

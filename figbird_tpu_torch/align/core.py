@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..dtypes import COMPLEMENT, GAP_CODE
+from ..ops import entry_device
 from ..ops.align_score import score_candidates
 from .index import KmerIndex, build_device_tables, host_tables
 
@@ -292,7 +293,8 @@ class Aligner:
     """Host-facing aligner: device copies of the genome and the k-mer table,
     reads aligned in batches.  ``two_tier=True`` runs a cheap seeding pass
     first and re-aligns with the full params only the reads it could not
-    settle (see the reference's class docstring)."""
+    settle (see the reference's class docstring).  ``device=None`` is the
+    card (an error where there is none); ``device="cpu"`` asks for the CPU."""
 
     def __init__(self, index: KmerIndex, params: AlignParams = AlignParams(),
                  batch_size: int = 32768, two_tier: bool = True,
@@ -301,9 +303,7 @@ class Aligner:
                  indel_win_margin: int = 4, banded_params=None, device=None):
         from .banded import BandedParams
 
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available()
-            else torch.device("cpu"))
+        self.device = entry_device(device)
         self.index = index
         self.params = params
         self.indel_tier = indel_tier

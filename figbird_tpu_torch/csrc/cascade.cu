@@ -15,172 +15,112 @@
 //
 // The TPU kept the whole (5L, Pw) one-hot product of a level in VMEM and
 // folded it with L row-block adds; an SM's shared memory cannot hold it, and
-// a product against a one-hot is a gather.  Here a block owns one instance
-// and TW = 32 output rows w (one per lane).  It walks the reads in chunks of
-// RC; for a chunk it computes, once, all m level weights of the TW + L - 1
-// positions its rows read and keeps them in shared memory (precise expf, so
-// the f32 denormals of the deep levels stay denormals), and then runs the
-// fold loop over them.  The JW = 8 warps split the read positions j that the
-// tile's rows can reach; a thread loads a base's code and value once and
-// feeds the m levels' five channel sums with FMAs (the value goes to the
-// base's channel, 0 to the others, so no branch depends on the data).  A
-// (chunk, j) partial sum is added to the thread's accumulators, and the
-// warps' accumulators are added in warp order at the end: the order is
-// fixed, there are no atomics, and two runs give the same bits.  Neither the
-// level weights nor a one-hot ever reach device memory.
+// a product against a one-hot is a gather.  Here the kernel is
+// count_core.cuh's tile with m levels: a block owns one instance and a tile
+// of output rows; for a chunk of reads it computes, once, all m level weights
+// of the positions its rows read into shared memory (precise expf, so the f32
+// denormals of the deep levels stay denormals) beside the chunk's (code,
+// value) pairs, and runs the sliding-window gather-sum over them: a decoded
+// base feeds rows-per-thread times m FMAs, sent to its channel by a
+// warp-uniform switch.  A thread owns 2 rows at m > 3 (60 running sums) and 4
+// rows at m <= 3, which is what 128 registers hold; a block has 16 warps and
+// an SM to itself, as K4's has (against two blocks of 8 warps: 10% faster at
+// 128 instances, 1% at the scan's 495, slower nowhere measured).
+// Neither the level weights nor a one-hot ever reach device memory; the order
+// of the sum is fixed, so two runs give the same bits.
 //
 // What bounds it on an H100: counted as the function needs them, the bytes
 // (78 MB at the banded main-path shape: 495 instances, 128 reads, Pw = 128,
 // L = 101, m = 6) outweigh the multiply-adds of the non-zero weights, so the
-// card's least time is the memory's.  The kernel is nowhere near it: it
-// works through m L P Pw I = 4.9 G (row, base, read, level) terms whatever
-// their value, 5 FMAs and one shared-memory load each, recomputes a weight
-// once per row tile that reads it (about (TW + L - 1) / TW times), and
-// holds about 100 registers a thread, so two blocks (16 warps) share an SM.
+// card's least time is the memory's.  The kernel is bound by the rate of its
+// instructions: it works through m L P Pw I = 4.9 G (row, base, read, level) terms
+// whatever their value, and through the zero-weight terms at its tiles'
+// slanted edges besides.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "count_core.cuh"
+
+// The tile's shape at M levels: output rows per thread, warps per block (they
+// split a chunk's reads), blocks per SM the registers and the stage are
+// planned for.  A source that tries another shape defines this before it
+// includes this file.
+#ifndef CASCADE_TILE
+#define CASCADE_TILE(M) ((M) <= 3 ? 4 : 2), 16, 1
+#endif
 
 namespace {
 
-constexpr int TW = 32;     // output rows per block, one per lane
-constexpr int JW = 8;      // warps per block, one chunk of j each
-constexpr int MAXM = 6;    // deepest cascade
-constexpr int MAXRC = 32;  // reads per staged chunk, at most
-constexpr int STAGE_BYTES = 100 * 1024;  // two blocks per SM
+constexpr int MAXM = 6;  // deepest cascade
 
-__device__ __forceinline__ float level_weight(float lw, int k, float shift,
-                                              float cut) {
-  const float lk = lw + (float)k * shift;
-  return lk <= cut ? expf(fminf(fmaxf(lk, -745.0f), cut)) : 0.0f;
-}
+template <int RW_, int NW_, int BPS_>
+struct Shape {
+  static constexpr int RW = RW_, NW = NW_, BPS = BPS_;
+};
+template <int M>
+using Tile = Shape<CASCADE_TILE(M)>;
+
+struct Level {
+  float shift, cut;
+  __device__ __forceinline__ float operator()(float lw, int k) const {
+    const float lk = lw + (float)k * shift;
+    return lk <= cut ? expf(fminf(fmaxf(lk, -745.0f), cut)) : 0.0f;
+  }
+};
 
 template <int M>
-__global__ void __launch_bounds__(TW* JW, 2)
+__global__ void __launch_bounds__(32 * Tile<M>::NW, Tile<M>::BPS)
     cascade_kernel(const float* __restrict__ lw,
                    const int8_t* __restrict__ codes,
                    const float* __restrict__ vals, float* __restrict__ out,
-                   int P, int L, int Pw, int W, int n_tiles, int RC,
-                   float shift, float cut) {
-  extern __shared__ float smem[];  // [M][RC][span], then [JW][M * 5][TW]
-  const int inst = blockIdx.x / n_tiles;
-  const int w0 = (blockIdx.x % n_tiles) * TW;
-  const int t = threadIdx.x;
-  const int kw = threadIdx.y;
-  const int tid = kw * TW + t;
-  const int w = w0 + t;
-  const int span = TW + L - 1;
-  const int pb = w0 - (L - 1);  // position of staged column 0
-  const float* lwi = lw + (size_t)inst * P * Pw;
-  const int8_t* ci = codes + (size_t)inst * P * L;
-  const float* vi = vals + (size_t)inst * P * L;
-
-  // this thread's j range: its warp's share of the j the tile's rows can
-  // reach (at the edge tiles that is a part of 0..L-1, and splitting only
-  // that part keeps all eight warps busy), cut to 0 <= w - j < Pw
-  const int jlo = max(0, w0 - Pw + 1), jhi = min(L - 1, w0 + TW - 1);
-  const int chunk = (jhi - jlo + JW) / JW;
-  int j0 = jlo + kw * chunk, j1 = jlo + (kw + 1) * chunk - 1;
-  if (j0 < w - Pw + 1) j0 = w - Pw + 1;
-  if (j1 > w) j1 = w;
-  if (j1 > L - 1) j1 = L - 1;
-  if (w >= W) j1 = j0 - 1;
-
-  float acc[M][5];
-#pragma unroll
-  for (int k = 0; k < M; ++k)
-#pragma unroll
-    for (int c = 0; c < 5; ++c) acc[k][c] = 0.0f;
-
-  for (int r0 = 0; r0 < P; r0 += RC) {
-    const int rc = min(RC, P - r0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int idx = tid; idx < rc * span; idx += TW * JW) {
-      const int rr = idx / span, q = idx - rr * span;
-      const int p = pb + q;
-      const float x = (p >= 0 && p < Pw)
-                          ? lwi[(size_t)(r0 + rr) * Pw + p] : -1e30f;
-#pragma unroll
-      for (int k = 0; k < M; ++k)
-        smem[(k * RC + rr) * span + q] = level_weight(x, k, shift, cut);
-    }
-    __syncthreads();
-    for (int j = j0; j <= j1; ++j) {
-      const int8_t* cc = ci + (size_t)r0 * L + j;
-      const float* vc = vi + (size_t)r0 * L + j;
-      const float* sw = smem + (t + L - 1 - j);
-      float s[M][5];
-#pragma unroll
-      for (int k = 0; k < M; ++k)
-#pragma unroll
-        for (int c = 0; c < 5; ++c) s[k][c] = 0.0f;
-#pragma unroll 2
-      for (int rr = 0; rr < rc; ++rr) {
-        const int c = cc[(size_t)rr * L];
-        const float v = vc[(size_t)rr * L];
-        const float v0 = c == 0 ? v : 0.0f;
-        const float v1 = c == 1 ? v : 0.0f;
-        const float v2 = c == 2 ? v : 0.0f;
-        const float v3 = c == 3 ? v : 0.0f;
-        const float v4 = c == 4 ? v : 0.0f;
-#pragma unroll
-        for (int k = 0; k < M; ++k) {
-          const float x = sw[(k * RC + rr) * span];
-          s[k][0] = fmaf(x, v0, s[k][0]);
-          s[k][1] = fmaf(x, v1, s[k][1]);
-          s[k][2] = fmaf(x, v2, s[k][2]);
-          s[k][3] = fmaf(x, v3, s[k][3]);
-          s[k][4] = fmaf(x, v4, s[k][4]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < M; ++k)
-#pragma unroll
-        for (int c = 0; c < 5; ++c) acc[k][c] += s[k][c];
-    }
-  }
-
-  // the warps' accumulators, added in warp order
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < M; ++k)
-#pragma unroll
-    for (int c = 0; c < 5; ++c)
-      smem[((kw * M + k) * 5 + c) * TW + t] = acc[k][c];
-  __syncthreads();
-  const int rows = min(TW, W - w0);
-  for (int idx = tid; idx < M * rows * 5; idx += TW * JW) {
-    const int k = idx / (rows * 5);
-    const int e = idx - k * rows * 5;  // (row, channel) of the tile
-    const int row = e / 5, c = e - row * 5;
-    float sum = 0.0f;
-    for (int q = 0; q < JW; ++q) sum += smem[((q * M + k) * 5 + c) * TW + row];
-    out[(((size_t)inst * M + k) * W + w0) * 5 + e] = sum;
-  }
+                   int P, int L, int Pw, int W, int n_tiles, int RC, int S,
+                   int LR, Level f) {
+  constexpr int RW = Tile<M>::RW;
+  const size_t inst = blockIdx.x / n_tiles;
+  const int w0 = (blockIdx.x % n_tiles) * (32 * RW);
+  count_core::tile<M, RW, Tile<M>::NW>(
+      lw + inst * P * Pw, codes + inst * P * L, vals + inst * P * L,
+      out + inst * M * W * 5, P, L, Pw, W, w0, RC, S, LR, f);
 }
 
 template <int M>
 int launch(const float* lw, const int8_t* codes, const float* vals,
            float* out, int I, int P, int L, int Pw, int W, float shift,
            float cut, cudaStream_t stream) {
-  const int span = TW + L - 1;
-  int RC = STAGE_BYTES / 4 / (M * span);
-  if (RC > MAXRC) RC = MAXRC;
-  if (RC < 1) return (int)cudaErrorInvalidValue;  // read too long to stage
-  const int stage = M * RC * span, part = JW * M * 5 * TW;
-  const int bytes = 4 * (stage > part ? stage : part);
-  const int n_tiles = (W + TW - 1) / TW;
+  constexpr int RW = Tile<M>::RW, NW = Tile<M>::NW;
+  const count_core::Plan p = count_core::plan<M, RW, NW, Tile<M>::BPS>(P, L);
+  if (p.RC < 1) return (int)cudaErrorInvalidValue;  // read too long to stage
+  const int n_tiles = (W + 32 * RW - 1) / (32 * RW);
   if ((long long)I * n_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   // above 48 KB the dynamic shared memory is an opt-in of the kernel
   cudaError_t err = cudaFuncSetAttribute(
-      cascade_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cascade_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
   if (err != cudaSuccess) return (int)err;
-  cascade_kernel<M><<<I * n_tiles, dim3(TW, JW), bytes, stream>>>(
-      lw, codes, vals, out, P, L, Pw, W, n_tiles, RC, shift, cut);
+  cascade_kernel<M><<<I * n_tiles, dim3(32, NW), p.bytes, stream>>>(
+      lw, codes, vals, out, P, L, Pw, W, n_tiles, p.RC, p.S, p.LR,
+      Level{shift, cut});
   return (int)cudaGetLastError();
 }
 
+template <int M>
+int stage_bytes(int P, int L) {
+  return count_core::plan<M, Tile<M>::RW, Tile<M>::NW, Tile<M>::BPS>(P, L)
+      .bytes;
+}
+
 }  // namespace
+
+// The dynamic shared memory a block of the m-level kernel asks for at P reads
+// of length L (for reports; 0 where m is out of range).
+extern "C" int cascade_stage_bytes(int P, int L, int m) {
+  switch (m) {
+    case 1: return stage_bytes<1>(P, L);
+    case 2: return stage_bytes<2>(P, L);
+    case 3: return stage_bytes<3>(P, L);
+    case 4: return stage_bytes<4>(P, L);
+    case 5: return stage_bytes<5>(P, L);
+    case 6: return stage_bytes<6>(P, L);
+    default: return 0;
+  }
+}
 
 // lw (I, P, Pw) f32 masked log-weights; codes (I, P, L) int8; vals (I, P, L)
 // f32; out (I, m, W, 5) f32 with Pw + L - 1 <= W <= Pw + L; 1 <= m <= 6.
@@ -189,7 +129,7 @@ extern "C" int cascade_launch(const void* lw, const void* codes,
                               int L, int Pw, int W, int m, float shift,
                               float cut, void* stream) {
   if (I == 0 || W == 0) return 0;
-  if (m < 1 || m > MAXM || P < 1 || L < 1)
+  if (m < 1 || m > MAXM || P < 1 || L < 1 || Pw < 1)
     return (int)cudaErrorInvalidValue;
   const float* a = (const float*)lw;
   const int8_t* b = (const int8_t*)codes;

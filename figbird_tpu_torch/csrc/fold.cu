@@ -11,87 +11,83 @@
 //   a valid base (0 outside the read), or the base's quality-error weight.
 //
 // The TPU formed the (5L, Pw) product oh_j^T . weights on the MXU in VMEM and
-// folded it with L row-block adds.  Here a block owns one instance and
-// TW = 32 output rows w (one per lane); its JW = 8 warps split the read
-// positions j into JW contiguous chunks.  For each j of its chunk a thread
-// sums the P reads' terms (the product's column w - j) in read order and adds
-// that to its five accumulators — the reference's "sum over reads, then fold
-// over j" — and the chunks' partial sums are then added in chunk order.  The
-// order is fixed and there are no atomics, so a run's counts never change
-// from run to run.  No one-hot is ever materialised.
+// folded it with L row-block adds.  Here the kernel is count_core.cuh's tile
+// with one level and the identity for a weight: a block owns one instance and
+// a tile of output rows, stages a chunk's weights and (code, value) pairs in
+// shared memory and runs the sliding-window gather-sum over them.  No one-hot
+// is ever materialised; the order of the sum is fixed, so two runs give the
+// same bits.
 //
-// What bounds it on an H100: the weight loads, P per (w, j) term, from L1/L2
-// (lanes read consecutive positions w - j: coalesced; codes and vals are
-// warp-uniform broadcasts) and the latency of those loads.  Splitting j over
-// eight warps gives every SM enough independent warps to hide it: at the main
-// path's shape (495 instances, W = 229, L = 101) the grid holds 3,960 blocks
-// of 256 threads, each thread summing at most 13 x P terms.
+// A thread owns 8 rows, so one 256-row tile covers the banded W = 229, and a
+// block has 16 warps and an SM to itself: measured against 4 and 2 rows a
+// thread and against two blocks of 8 warps, this shape was the fastest or
+// within 8% of it at every instance batch the main path sends (64 to 495).
+//
+// What bounds it on an H100: counted as the function needs them, the bytes
+// (66.7 MB at the main path's shape: 495 instances, 128 reads, Pw = 128,
+// L = 101) outweigh the multiply-adds of the non-zero weights, so the card's
+// least time is the memory's.  The kernel is bound by the rate of its
+// instructions: it works through every (row, base, read) term of its tiles
+// whatever its value.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "count_core.cuh"
+
+// The tile's shape: output rows per thread, warps per block (they split a
+// chunk's reads), blocks per SM the shared memory is planned for.  A source
+// that tries another shape defines this before it includes this file.
+#ifndef FOLD_TILE
+#define FOLD_TILE 8, 16, 1
+#endif
 
 namespace {
 
-constexpr int TW = 32;  // output rows per block, one per lane
-constexpr int JW = 8;   // warps per block, one chunk of j each
+struct Raw {
+  __device__ __forceinline__ float operator()(float x, int) const { return x; }
+};
 
-__global__ void fold_kernel(const float* __restrict__ weights,
-                            const int8_t* __restrict__ codes,
-                            const float* __restrict__ vals,
-                            float* __restrict__ out, int P, int L, int Pw,
-                            int W) {
-  __shared__ float part[JW][5][TW];
-  const int inst = blockIdx.y;
-  const int t = threadIdx.x;
-  const int k = threadIdx.y;
-  const int w = blockIdx.x * TW + t;
-  const float* wi = weights + (size_t)inst * P * Pw;
-  const int8_t* ci = codes + (size_t)inst * P * L;
-  const float* vi = vals + (size_t)inst * P * L;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f, a4 = 0.0f;
-  if (w < W) {
-    const int chunk = (L + JW - 1) / JW;
-    int j0 = k * chunk, j1 = (k + 1) * chunk - 1;
-    if (j0 < w - Pw + 1) j0 = w - Pw + 1;
-    if (j1 > w) j1 = w;
-    if (j1 > L - 1) j1 = L - 1;
-    for (int j = j0; j <= j1; ++j) {
-      const float* wc = wi + (w - j);
-      const int8_t* cc = ci + j;
-      const float* vc = vi + j;
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f, s4 = 0.0f;
-#pragma unroll 4
-      for (int r = 0; r < P; ++r) {
-        const float x = wc[(size_t)r * Pw] * vc[(size_t)r * L];
-        const int c = cc[(size_t)r * L];
-        s0 += c == 0 ? x : 0.0f;
-        s1 += c == 1 ? x : 0.0f;
-        s2 += c == 2 ? x : 0.0f;
-        s3 += c == 3 ? x : 0.0f;
-        s4 += c == 4 ? x : 0.0f;
-      }
-      a0 += s0;
-      a1 += s1;
-      a2 += s2;
-      a3 += s3;
-      a4 += s4;
-    }
-  }
-  part[k][0][t] = a0;
-  part[k][1][t] = a1;
-  part[k][2][t] = a2;
-  part[k][3][t] = a3;
-  part[k][4][t] = a4;
-  __syncthreads();
-  // warp c (< 5) adds the chunks of channel c in chunk order
-  if (k < 5 && w < W) {
-    float s = 0.0f;
-    for (int q = 0; q < JW; ++q) s += part[q][k][t];
-    out[((size_t)inst * W + w) * 5 + k] = s;
-  }
+template <int RW, int NW, int BPS>
+__global__ void __launch_bounds__(32 * NW, BPS)
+    fold_kernel(const float* __restrict__ weights,
+                const int8_t* __restrict__ codes,
+                const float* __restrict__ vals, float* __restrict__ out, int P,
+                int L, int Pw, int W, int n_tiles, int RC, int S, int LR) {
+  const size_t inst = blockIdx.x / n_tiles;
+  const int w0 = (blockIdx.x % n_tiles) * (32 * RW);
+  count_core::tile<1, RW, NW>(
+      weights + inst * P * Pw, codes + inst * P * L, vals + inst * P * L,
+      out + inst * W * 5, P, L, Pw, W, w0, RC, S, LR, Raw());
+}
+
+template <int RW, int NW, int BPS>
+int launch(const float* weights, const int8_t* codes, const float* vals,
+           float* out, int I, int P, int L, int Pw, int W,
+           cudaStream_t stream) {
+  const count_core::Plan p = count_core::plan<1, RW, NW, BPS>(P, L);
+  if (p.RC < 1) return (int)cudaErrorInvalidValue;  // read too long to stage
+  const int n_tiles = (W + 32 * RW - 1) / (32 * RW);
+  if ((long long)I * n_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  // above 48 KB the dynamic shared memory is an opt-in of the kernel
+  cudaError_t err = cudaFuncSetAttribute(
+      fold_kernel<RW, NW, BPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  fold_kernel<RW, NW, BPS><<<I * n_tiles, dim3(32, NW), p.bytes, stream>>>(
+      weights, codes, vals, out, P, L, Pw, W, n_tiles, p.RC, p.S, p.LR);
+  return (int)cudaGetLastError();
+}
+
+template <int RW, int NW, int BPS>
+int stage_bytes(int P, int L) {
+  return count_core::plan<1, RW, NW, BPS>(P, L).bytes;
 }
 
 }  // namespace
+
+// The dynamic shared memory a block asks for at P reads of length L (for
+// reports).
+extern "C" int fold_stage_bytes(int P, int L) {
+  return stage_bytes<FOLD_TILE>(P, L);
+}
 
 // weights (I, P, Pw) f32; codes (I, P, L) int8; vals (I, P, L) f32;
 // out (I, W, 5) f32 with W >= Pw + L - 1.
@@ -99,11 +95,11 @@ extern "C" int fold_launch(const void* weights, const void* codes,
                            const void* vals, void* out, int I, int P, int L,
                            int Pw, int W, void* stream) {
   if (I == 0 || W == 0) return 0;
-  if (I > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + TW - 1) / TW, I);
-  const dim3 block(TW, JW);
-  fold_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)weights, (const int8_t*)codes, (const float*)vals,
-      (float*)out, P, L, Pw, W);
-  return (int)cudaGetLastError();
+  if (P < 1 || L < 1 || Pw < 1) return (int)cudaErrorInvalidValue;
+  const float* a = (const float*)weights;
+  const int8_t* b = (const int8_t*)codes;
+  const float* c = (const float*)vals;
+  float* o = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  return launch<FOLD_TILE>(a, b, c, o, I, P, L, Pw, W, s);
 }

@@ -25,6 +25,7 @@ import torch
 
 from ..dtypes import GAP_CODE, N
 from ..genome import GapInfo
+from ..ops import entry_device
 from .em import (_CASCADE_GROUP, _NEXT_SLICE, SCAN_COLS, FillConfig,
                  fill_batch_full_packed, fill_batch_scan,
                  finalize_batch_packed, finalize_packed_layout,
@@ -524,6 +525,8 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
     the flagged instances.  ``False`` = plain f32 only, no detection (a
     precision-attribution trial).  ``soft_levels`` defaults to 3 (1 with
     ``exact_soft=False``).  Unmapped mode raises ``NotImplementedError``.
+    ``device=None`` is the card (an error where there is none);
+    ``device="cpu"`` asks for the CPU.
     """
     if not partial_mode:
         raise NotImplementedError(_NEXT_SLICE)
@@ -536,8 +539,7 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
     scan_fast = exact_soft == "hybrid"
     if soft_levels is None:
         soft_levels = 1 if exact_soft is False else 3
-    device = torch.device(device) if device is not None else torch.device(
-        "cuda" if torch.cuda.is_available() else "cpu")
+    device = entry_device(device)
     if max_scan_lengths is None:
         max_scan_lengths = 96
     if instance_batch is None:

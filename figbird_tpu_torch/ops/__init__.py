@@ -19,3 +19,18 @@ def require_cuda(t, what: str) -> None:
     version only for CPU tensors)."""
     if t.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {t.device}")
+
+
+def entry_device(device):
+    """The device an entry point runs on: ``device`` where the caller named
+    one, else the card.  Nothing carries on on the CPU because no card was
+    found: without one, only ``device="cpu"`` asks for the CPU."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this entry point runs on the GPU unless the "
+            'caller passes device="cpu"')
+    return torch.device("cuda")

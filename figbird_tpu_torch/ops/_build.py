@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C entry point that takes pointers and the
 stream as ``void*`` and returns ``cudaGetLastError()``.  A source is compiled
 at first use for ``sm_90a`` into ``figbird_tpu_torch/_build/`` under a name
-that carries the hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build()`` starts one
+that carries the hash of the source, of every header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 """
 
@@ -41,7 +42,7 @@ SOURCES = tuple(ENTRY)
 # no --use_fast_math and no -ftz=true: the soft-pass kernel needs precise
 # logf, the cascade precise expf whose f32 denormals stay denormals
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", str(CSRC))
 
 _launchers: dict = {}
 _lock = threading.Lock()
@@ -58,7 +59,9 @@ def _nvcc() -> str:
 def target(name: str) -> Path:
     """The shared library a source builds into (content-addressed)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 
 

@@ -22,6 +22,9 @@ package ``vmap``s over instances; here the instance axis I leads):
   ``CASCADE_GROUP`` to one batched matmul against the c-major count one-hot,
   ``fold_T`` per level (the XLA branch of ``em.py::_accumulate_levels``).
 
+K4 and K1 are two thin kernels over one device function,
+``csrc/count_core.cuh``: the count product and the diagonal fold in f32.
+
 The kernels take the reads as codes plus a per-base mask (K2, K3) or a
 per-base count value (K1, K4) and build no one-hot; the plain versions build
 the one-hots the JAX package's CPU path uses.

@@ -21,6 +21,7 @@ from .align.core import Aligner, AlignParams
 from .align.index import build_index
 from .fill.driver import fill_gaps
 from .model import error_model
+from .ops import entry_device
 from .triage import assign
 from .utils import trace
 
@@ -191,8 +192,9 @@ def _learn_model(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
 
 class Pipeline:
     """Stateful pipeline over an in-memory genome + read libraries, on one
-    device (``device``: a CUDA device runs the kernels; the CPU runs their
-    plain versions)."""
+    device.  ``device=None`` is the card, and an error where there is none;
+    ``device="cpu"`` asks for the CPU, where the kernels' plain versions
+    run."""
 
     def __init__(self, cfg, genome, libs, align_params: AlignParams =
                  AlignParams(), min_model_pairs: int = 500,
@@ -205,9 +207,7 @@ class Pipeline:
                 "artifacts, mesh and multi-host execution " + _LATER)
         cfg.validate()
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available()
-            else torch.device("cpu"))
+        self.device = entry_device(device)
         self.genome = genome
         self.libs = []
         for lib, (r1, r2) in zip(cfg.read_pairs, libs):

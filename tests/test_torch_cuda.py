@@ -13,6 +13,7 @@ import torch
 
 from figbird_tpu_torch import ops
 from figbird_tpu_torch.ops import align_score, band
+from test_torch_counts import CUT, SHAPES, SHIFT, count_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -118,6 +119,57 @@ def test_cascade_matches_plain(dev, I, P, L, Pw, m):
     assert (got == 0).any() and (got[:, m - 1] > 0).any()
     assert torch.equal(got, band.cascade_counts(lw, codes, vals, W, m, 140.0,
                                                 78.0))
+
+
+def _counts_on_card(dev, seed, I, P, Pw, L, W, m, fractional):
+    """K4 (``m`` None) or K1 on the card against its plain version there:
+    rtol 2e-6, atol 0, K1 with zeros in the same places; one launch; a
+    second launch bit-equal."""
+    x, codes, vals = (torch.as_tensor(a, device=dev) for a in count_inputs(
+        seed, I, P, Pw, L, fractional, m is not None))
+    if m is None:
+        name, shape = "fold", (I, W, 5)
+        kern = lambda: band.fold_counts(x, codes, vals, W)  # noqa: E731
+        want = band.fold_counts_plain(x, codes, vals, W)
+    else:
+        name, shape = "cascade", (I, m, W, 5)
+        kern = lambda: band.cascade_counts(  # noqa: E731
+            x, codes, vals, W, m, SHIFT, CUT)
+        want = band.cascade_counts_plain(x, codes, vals, W, m, SHIFT, CUT)
+    got, once = _launched(name, kern)
+    assert once and got.shape == shape
+    _close(got, want, 2e-6, 0.0)
+    if m is not None:
+        assert torch.equal(got == 0, want == 0)
+    assert (want > 0).any()
+    assert torch.equal(got, kern())
+
+
+@pytest.mark.parametrize("m,fractional", [
+    (None, False), (None, True), (1, False), (3, False), (6, False),
+    (6, True)])
+@pytest.mark.parametrize("P,Pw,L,W", SHAPES)
+def test_counts_match_plain_at_ragged_shapes(dev, P, Pw, L, W, m, fractional):
+    """K4 and K1 where nothing divides: one read, a last chunk that is not
+    full, bands narrower than a row tile, both widths W."""
+    _counts_on_card(dev, 31, 3, P, Pw, L, W, m, fractional)
+
+
+@pytest.mark.parametrize("m", [None, 6])
+@pytest.mark.parametrize("L", [151, 250])
+def test_counts_long_reads_right_or_refused(dev, L, m):
+    """Reads longer than the main path's: the stage holds fewer of them per
+    chunk.  The kernel is either right or its wrapper raises; it never
+    returns a wrong answer."""
+    try:
+        _counts_on_card(dev, 32, 2, 37, 140, L, 140 + L, m, False)
+    except RuntimeError as e:
+        assert "launch failed" in str(e)
+
+
+def test_fold_many_instances(dev):
+    """70,000 tiny instances: more than a grid's second dimension holds."""
+    _counts_on_card(dev, 33, 70_000, 2, 5, 7, 12, None, False)
 
 
 def test_score_candidates_bit_equal_to_plain(dev):

@@ -232,7 +232,7 @@ def test_port_sources_import_nothing_of_the_reference():
     pat = re.compile(r"^\s*(from|import)\s+(figbird_tpu|jax|jaxlib)(\.|\s|$)",
                      re.M)
     files = sorted(Path(REPO, "figbird_tpu_torch").rglob("*.py")) \
-        + [Path(REPO, "chip_smoke.py"), Path(REPO, "time_cascade.py")]
+        + [Path(REPO, "chip_smoke.py"), Path(REPO, "time_counts.py")]
     assert len(files) > 20
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
