@@ -13,11 +13,16 @@ Phases (every one must pass; none is caught):
    shape and at m = 3; K4 at the finalize's instance batch, which is all the
    default path sends it, and also checked and timed at the larger batches
    of exact_soft=False, and checked, untimed, with quality-weighted count
-   values and at the full-width shape, two launches bit-equal); CUDA-event
-   times (median of 25) of the kernel, of the plain version and, for K1 and
-   K4, of the library chain (one batched matmul against a prebuilt one-hot
-   plus the fold); the least time the card could take for the same work
-   (``bound_ms``).
+   values and at the full-width shape, two launches bit-equal; K2 and both
+   forms of K3, the gap-string form the main path launches and the K form,
+   checked and timed at every instance batch the main path sends them (495,
+   256, 128, 64) and at the full-width shape, two launches bit-equal, the
+   gap-string form bit-equal to the K form); CUDA-event times
+   (``time_counts.cuda_ms``: per call, over batches of 10 calls in a row)
+   of the kernel, of the plain version and of the library chain (one
+   batched matmul against a prebuilt one-hot: for K1 and K4 plus the fold,
+   for K2 and K3 after soft_K or hard_K and the skew; K5 has none); the
+   least time the card could take for the same work (``bound_ms``).
 3. parity  — the port's p-iteration on CUDA vs the same on the CPU (plain
    versions) on the 120 kb simulation of tests/test_pipeline.py, at the
    production default and at exact_soft=False: aligner outputs must be
@@ -37,7 +42,6 @@ name/power-limit line; the last line is the device JSON.
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +58,8 @@ from figbird_tpu_torch.fill import em  # noqa: E402
 from figbird_tpu_torch.ops import _build  # noqa: E402
 from figbird_tpu_torch.ops import band, align_score  # noqa: E402
 from figbird_tpu_torch.pipeline import Pipeline  # noqa: E402
+from time_bands import band_inputs  # noqa: E402
+from time_counts import cuda_ms  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 ALIGN_KEYS = ("score", "pos", "strand", "clip_start", "clip_end", "aligned",
@@ -86,22 +92,6 @@ def smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Median CUDA-event time of ``fn`` in ms (after 3 warm-up calls)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def close(got, want, rtol, atol):
     """max |got - want| and whether |got - want| <= atol + rtol |want|."""
     got, want = got.double(), want.double()
@@ -129,8 +119,9 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     secs = _build.build()
     log(f"kernels built in {secs:.1f}s ({', '.join(_build.SOURCES)})")
-    for name in _build.SOURCES:
+    for name in _build.ENTRY:
         _build.launcher(name)
+    for name in _build.SOURCES:
         log_path = _build.target(name).with_suffix(".log")
         for ln in log_path.read_text().splitlines():
             if "registers" in ln or "bytes stack frame" in ln:
@@ -196,6 +187,71 @@ def check_fold(weights, codes, vals, W, what):
                              f"(max abs err {err}, repeat {repeat})")
 
 
+def timed(kern, plain, lib):
+    """CUDA-event ms of the kernel, its plain version and its library chain
+    in the order library, plain, kernel, kernel, plain, library: both
+    orders inside one call, the better of each pair."""
+    l1, p1, k1, k2, p2, l2 = (cuda_ms(f) for f in (lib, plain, kern, kern,
+                                                   plain, lib))
+    return min(k1, k2), min(p1, p2), min(l1, l2)
+
+
+def check_bands(b_in, Wp, what, time_forms=("K2", "K form", "gap form")):
+    """K2 and both forms of K3 against their plain versions (K2 rtol 1e-5,
+    atol 1e-3; K3 rtol 1e-5, atol 1e-4), two launches bit-equal, the
+    gap-string form bit-equal to the K form on hard_K's output; the forms
+    in ``time_forms`` timed beside their plain versions and library
+    chains."""
+    codes, valid, probs, eprobs, e_pos, gap, a, b, ln_et = b_in
+    K = band.hard_K(gap, a, b, ln_et)
+    oh = band.oh_flat_j(codes, valid)
+    forms = {
+        "K2": (1e-3,
+               lambda: band.band_score_soft(codes, valid, probs, eprobs,
+                                            e_pos, Wp),
+               lambda: band.band_score_soft_plain(codes, valid, probs,
+                                                  eprobs, e_pos, Wp),
+               lambda: band.band_score_onehot(
+                   oh, band.soft_K(probs, eprobs, e_pos), Wp)),
+        "K form": (1e-4,
+                   lambda: band.band_score(codes, valid, K, Wp),
+                   lambda: band.band_score_plain(codes, valid, K, Wp),
+                   lambda: band.band_score_onehot(oh, K, Wp)),
+        "gap form": (1e-4,
+                     lambda: band.band_score_hard(codes, valid, gap, a, b,
+                                                  ln_et, Wp),
+                     lambda: band.band_score_hard_plain(codes, valid, gap, a,
+                                                        b, ln_et, Wp),
+                     lambda: band.band_score_onehot(
+                         oh, band.hard_K(gap, a, b, ln_et), Wp)),
+    }
+    outs = {}
+    for form, (atol, kern, plain, lib) in forms.items():
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        err, ok = close(got, want, 1e-5, atol)
+        repeat = torch.equal(got, again)
+        msg = (f"{form} {what}: shape {tuple(got.shape)}, max_abs_err "
+               f"{err:.3g} (rtol 1e-5, atol {atol}), repeat bit-equal "
+               f"{repeat}")
+        if form in time_forms:
+            ms, plain_ms, lib_ms = timed(kern, plain, lib)
+            msg += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                    f"library {lib_ms:.3f} ms")
+        log(msg)
+        if not (ok and repeat):
+            raise AssertionError(f"{form} {what} disagrees with its plain "
+                                 f"version (max abs err {err}, repeat "
+                                 f"{repeat})")
+        outs[form] = got
+        del again, want
+    same = torch.equal(outs["gap form"], outs["K form"])
+    log(f"K3 {what}: gap-string form bit-equal to the K form {same}")
+    if not same:
+        raise AssertionError(f"K3 {what}: the gap-string form differs from "
+                             f"the K form")
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -210,17 +266,17 @@ def phase_kernels():
     codes[rand(I, P, L) < 0.01] = 4
     plen = torch.randint(40, L + 1, (I, P, 1), generator=g, device=DEV)
     j = torch.arange(L, device=DEV)
-    valid = (j < plen) & (j >= 2)
-    probs = rand(I, R, 5)
-    probs[..., 4] = 0
-    probs = probs / probs.sum(-1, keepdim=True)
-    eprobs = rand(I, R, 5) * 1e-2
-    e_pos = rand(L) * 1e-2
-    Kh = -rand(I, R, 5 * L) * 8
     weights = torch.where(rand(I, P, bw) < 0.5, 0.0, rand(I, P, bw))
     vals = (j < plen).to(torch.float32).expand(I, P, L).contiguous()
     n_val = (vals != 0).sum(-1)                      # counted bases per read
-    n_score = int(valid.sum())                       # scored bases
+
+    # K2, K3: reads, probability slabs, a gap string with Ns and positions
+    # past the contig, and the model's log factors; R = bw + L - 1
+    b_in = band_inputs(g, I, P, L, bw)
+    b_codes, b_valid, probs, eprobs, e_pos, gap, a_f, b_f, ln_et = b_in
+    b_R = gap.shape[1]
+    b_oh = band.oh_flat_j(b_codes, b_valid)
+    n_cells = int((b_valid & (b_codes < 5)).sum()) * bw  # scored cells
     out_f32 = I * P * bw * 4
 
     # K1: the banded soft accumulate of the exact cascade, m = 6
@@ -273,19 +329,31 @@ def phase_kernels():
          cascade_library,
          nbytes(lw, c_codes, c_vals) + I * 6 * R * 5 * 4, c_ops),
         # one log factor (4 operations) per (row, base, channel) of the
-        # slabs, one add per scored base and position
+        # slabs, one add per scored cell; library: soft_K, the skew and one
+        # bmm against a prebuilt one-hot
         ("band_soft", "figbird_tpu_torch/csrc/band_soft.cu",
          "figbird_tpu/ops/band.py:144", 1e-5, 1e-3,
-         lambda: band.band_score_soft(codes, valid, probs, eprobs, e_pos, bw),
-         lambda: band.band_score_soft_plain(codes, valid, probs, eprobs,
+         lambda: band.band_score_soft(b_codes, b_valid, probs, eprobs, e_pos,
+                                      bw),
+         lambda: band.band_score_soft_plain(b_codes, b_valid, probs, eprobs,
                                             e_pos, bw),
-         None, nbytes(codes, valid, probs, eprobs, e_pos) + out_f32,
-         n_score * bw + 4 * I * R * L * 5),
+         lambda: band.band_score_onehot(
+             b_oh, band.soft_K(probs, eprobs, e_pos), bw),
+         nbytes(b_codes, b_valid, probs, eprobs, e_pos) + out_f32,
+         n_cells + 4 * I * b_R * L * 5),
+        # the gap-string form the main path launches: one add per entry of
+        # K (I, R, 5L) and per scored cell; library: hard_K, the skew and
+        # one bmm against a prebuilt one-hot
         ("band_hard", "figbird_tpu_torch/csrc/band_hard.cu",
          "figbird_tpu/ops/band.py:63", 1e-5, 1e-4,
-         lambda: band.band_score(codes, valid, Kh, bw),
-         lambda: band.band_score_plain(codes, valid, Kh, bw),
-         None, nbytes(codes, valid, Kh) + out_f32, n_score * bw),
+         lambda: band.band_score_hard(b_codes, b_valid, gap, a_f, b_f, ln_et,
+                                      bw),
+         lambda: band.band_score_hard_plain(b_codes, b_valid, gap, a_f, b_f,
+                                            ln_et, bw),
+         lambda: band.band_score_onehot(
+             b_oh, band.hard_K(gap, a_f, b_f, ln_et), bw),
+         nbytes(b_codes, b_valid, gap, a_f, b_f, ln_et) + out_f32,
+         n_cells + I * b_R * L * 5),
         ("fold", "figbird_tpu_torch/csrc/fold.cu",
          "figbird_tpu/ops/band.py:320", 2e-6, 0.0,
          lambda: band.fold_counts(f_w, f_codes, f_vals, R),
@@ -314,17 +382,14 @@ def phase_kernels():
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version (max abs err {err})")
             del got, want
-        # library, plain, kernel, kernel, plain, library: both orders inside
-        # one call, the better of each pair
-        l1 = cuda_ms(lib) if lib is not None else None
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                          cuda_ms(plain))
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        library_ms = min(l1, cuda_ms(lib)) if lib is not None else None
+        if lib is not None:
+            ms, plain_ms, library_ms = timed(kern, plain, lib)
+        else:
+            ms, plain_ms, library_ms = min(cuda_ms(kern), cuda_ms(kern)), \
+                min(cuda_ms(plain), cuda_ms(plain)), None
         bound_ms, bound_by = bound(n_b, n_o)
         log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
-            f"kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} "
-            f"ms ({p1:.3f}, {p2:.3f}), library "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
             f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, "
             f"bound {bound_ms:.4f} ms by {bound_by} ({n_b / 1e6:.1f} MB, "
             f"{n_o / 1e9:.3f} G operations)")
@@ -332,6 +397,13 @@ def phase_kernels():
                          launches=0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms))
+    # K2 and K3 at every instance batch the main path sends them, and K3's
+    # K form beside its gap-string form (timed at the scan's batch too)
+    check_bands(b_in, bw, f"banded, {I} instances", ("K form",))
+    for n in (256, 128, FINALIZE_BATCH):
+        check_bands([x[:n] if x.dim() > 1 and x.shape[0] == I else x
+                     for x in b_in], bw, f"banded, {n} instances")
+    del b_in, b_codes, b_valid, probs, eprobs, gap, b_oh
     # K4 at the larger batches exact_soft=False sends it, up to the scan's
     for n in (*PARTIAL_BATCHES, I):
         w_n, c_n, v_n = weights[:n], codes[:n], vals[:n]
@@ -351,7 +423,7 @@ def phase_kernels():
                f"banded, {n_f} instances, quality-weighted values")
     check_fold(weights, codes, vals * rand(I, P, L) * 1e-2, R,
                "banded, quality-weighted values")
-    del lw, c_codes, c_vals, c_ohT, f_ohT, Kh, weights, f_w
+    del lw, c_codes, c_vals, c_ohT, f_ohT, weights, f_w
     torch.cuda.empty_cache()
 
     # K1, untimed: the mini-cascade depth, and the full-width shape of the
@@ -371,6 +443,10 @@ def phase_kernels():
     check_fold(weights, c_codes, c_vals, Wp + L,
                f"full width, {n_u} reads")
     del weights, c_codes, c_vals
+    torch.cuda.empty_cache()
+    # K2 and K3 at the same shape, checked and timed
+    check_bands(band_inputs(g, ib, n_u, L, Wp), Wp,
+                f"full width, {ib} instances x {n_u} reads")
     torch.cuda.empty_cache()
     return rows
 
@@ -488,8 +564,14 @@ def busy_share(sim, wall_plain):
         f"share {busy / 1e6 / wall:.3f} of that wall, "
         f"{busy / 1e6 / wall_plain:.3f} of the warm wall without the "
         f"profiler ({wall_plain:.3f}s)")
-    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
-        log(f"profile default:   {t / 1e3:8.1f} ms {n:6d} x {name[:70]}")
+    ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
+    # the eight largest, then every hand-written kernel below them
+    ours = ("band_core::kernel", "cascade_kernel", "fold_kernel",
+            "score_candidates_kernel")
+    for i, (name, (t, n)) in enumerate(ranked):
+        if i < 8 or any(k in name for k in ours):
+            log(f"profile default:   {t / 1e3:8.1f} ms {n:6d} x "
+                f"{name[:90]}")
 
 
 def phase_main(profile_run: bool):

@@ -1,84 +1,113 @@
-// K3: banded score against a precomputed log-factor tensor — the hard
-// (consensus) pass and finalize placement of the partial GapFiller EM.
+// K3: banded score of the hard (consensus) pass and the finalize placement
+// of the partial GapFiller EM, in two forms over band_core.cuh.
 //
 // Replaces figbird_tpu/ops/band.py::_band_kernel (pallas_call at band.py:110),
 // reached from fill/em.py:462-464 and :601-605 (hard pass em.py:1175-1178,
 // finalize em.py:1624-1627).  Its output feeds a first-max position argmax.
 //
 //   score[i, r, p] = sum_{j ascending, valid[i, r, j]} K[i, p+j, 5j + c],
-//   c = codes[i, r, j],  K flat j-major (I, R, 5L) from fill/em.py _hard_K.
+//   c = codes[i, r, j],  K flat j-major (I, R, 5L) as fill/em.py _hard_K
+//   builds it from the gap string g:
+//     K[w, 5j + c] = 0                      where g[w] >= 5,
+//                    a_j                    where c == g[w],
+//                    b_j + lnET[g[w], c]    else (one f32 add).
+//
+// band_hard_launch takes K from device memory (the counterpart of
+// _band_kernel).  band_hard_gap_launch, the one the EM's main path calls,
+// builds the same entries from the gap string while it stages the tile, so
+// K never reaches device memory; the entries, and so the scores, are bit
+// for bit those of the K form on _hard_K's output.
 //
 // The TPU assembled the banded tile Kw[t, 5j+c] = K[p0+t+j, 5j+c] in VMEM and
 // ran a one-hot matmul on the MXU.  Each output cell selects one entry per j,
-// so here a block owns one instance and TP = 32 positions, stages the tile
-// as kw[j][c][t] in shared memory (64.6 KB at L = 101) and gathers: no
-// one-hot, no Kw in device memory.
-//
-// What bounds it on an H100: the staging loads of K (strided rows of the
-// (R, 5L) tensor, each element read once per block) and then the shared
-// gather, P * TP * L loads per block.  Every cell sums over j in ascending
-// order in f32 without atomics, so equal placements score bit-equal and the
-// downstream first-max argmax keeps the reference's ties.
+// so here it is the core's gather-sum: no one-hot, no Kw in device memory.
+// What bounds it on an H100: the core's shared-memory loads (see there); the
+// K form also reads K, each element once a block.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_core.cuh"
 
+// The tile's shape (see band_soft.cu); a trial source defines it before it
+// includes this file.
+#ifndef BAND_HARD_TILE
+#define BAND_HARD_TILE 2, 1, 32, 1
+#endif
+
+// Instance i's entries from K (R, 5L).
+struct KTile {
+  const float* K;
+  int LC;  // 5L
+  __device__ __forceinline__ float operator()(int w, int j, int c) const {
+    return K[(size_t)w * LC + j * 5 + c];
+  }
+};
+
+struct KMake {
+  const float* K;
+  int R, LC;
+  __device__ __forceinline__ KTile operator()(size_t i) const {
+    return KTile{K + i * R * LC, LC};
+  }
+};
+
+// Instance i's entries from its gap string (R,) int8, codes 0..5.
+struct GapTile {
+  const int8_t* g;
+  const float* a;   // (L,) match log factors
+  const float* b;   // (L,) mismatch log factors
+  const float* ln;  // (5, 5) lnET
+  __device__ __forceinline__ float operator()(int w, int j, int c) const {
+    const int gw = g[w];
+    if (gw >= 5) return 0.0f;
+    return c == gw ? a[j] : b[j] + ln[gw * 5 + c];
+  }
+};
+
+struct GapMake {
+  const int8_t* g;
+  const float *a, *b, *ln;
+  int R;
+  __device__ __forceinline__ GapTile operator()(size_t i) const {
+    return GapTile{g + i * R, a, b, ln};
+  }
+};
+
+#ifdef __CUDACC__
 namespace {
-
-constexpr int TP = 32;
-constexpr int WARPS = 8;
-
-__global__ void band_hard_kernel(const int8_t* __restrict__ codes,
-                                 const uint8_t* __restrict__ valid,
-                                 const float* __restrict__ K,
-                                 float* __restrict__ out, int P, int L, int R,
-                                 int Wp) {
-  extern __shared__ float kw[];  // [L][5][TP]
-  const int inst = blockIdx.y;
-  const int p0 = blockIdx.x * TP;
-  const int LC = L * 5;
-  const float* Ki = K + (size_t)inst * R * LC;
-  const int n = LC * TP;
-  for (int idx = threadIdx.y * TP + threadIdx.x; idx < n; idx += TP * WARPS) {
-    const int t = idx % TP;
-    const int jc = idx / TP;  // j * 5 + c
-    const int w = p0 + t + jc / 5;
-    kw[idx] = w < R ? Ki[(size_t)w * LC + jc] : 0.0f;
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int p = p0 + t;
-  if (p >= Wp) return;
-  for (int r = threadIdx.y; r < P; r += WARPS) {
-    const size_t row = (size_t)inst * P + r;
-    const int8_t* cr = codes + row * L;
-    const uint8_t* vr = valid + row * L;
-    float s = 0.0f;
-    for (int j = 0; j < L; ++j) {
-      const int c = cr[j];
-      if (vr[j] && c >= 0 && c < 5) s += kw[(j * 5 + c) * TP + t];
-    }
-    out[row * Wp + p] = s;
-  }
+template <int NQ, int NR, int NW, int BPS>
+int stage_bytes(int L) {
+  return band_core::plan<NQ, NR, NW, BPS>(L).bytes;
 }
-
+template <int NQ, int NR, int NW, int BPS, class Make>
+int launch(const Make& m, const void* codes, const void* valid, void* out,
+           int I, int P, int L, int Wp, void* stream) {
+  return band_core::launch<NQ, NR, NW, BPS>(m, codes, valid, out, I, P, L,
+                                            Wp, stream);
+}
 }  // namespace
 
-// codes (I, P, L) int8; valid (I, P, L) uint8; K (I, R, 5L) f32 with
+// The dynamic shared memory a block asks for at read length L (for reports).
+extern "C" int band_hard_stage_bytes(int L) {
+  return stage_bytes<BAND_HARD_TILE>(L);
+}
+
+// codes (I, P, L) int8; valid (I, P, L) bool; K (I, R, 5L) f32 with
 // R >= Wp + L - 1; out (I, P, Wp) f32.
 extern "C" int band_hard_launch(const void* codes, const void* valid,
                                 const void* K, void* out, int I, int P, int L,
                                 int R, int Wp, void* stream) {
-  if (I == 0 || P == 0 || Wp == 0) return 0;
-  if (I > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = L * 5 * TP * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_hard_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Wp + TP - 1) / TP, I);
-  const dim3 block(TP, WARPS);
-  band_hard_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const uint8_t*)valid, (const float*)K,
-      (float*)out, P, L, R, Wp);
-  return (int)cudaGetLastError();
+  const KMake m{(const float*)K, R, 5 * L};
+  return launch<BAND_HARD_TILE>(m, codes, valid, out, I, P, L, Wp, stream);
 }
+
+// codes, valid as above; gap_string (I, R) int8 with R >= Wp + L - 1;
+// a, b (L,) f32; ln_et (5, 5) f32; out (I, P, Wp) f32.
+extern "C" int band_hard_gap_launch(const void* codes, const void* valid,
+                                    const void* gap_string, const void* a,
+                                    const void* b, const void* ln_et,
+                                    void* out, int I, int P, int L, int R,
+                                    int Wp, void* stream) {
+  const GapMake m{(const int8_t*)gap_string, (const float*)a, (const float*)b,
+                  (const float*)ln_et, R};
+  return launch<BAND_HARD_TILE>(m, codes, valid, out, I, P, L, Wp, stream);
+}
+#endif

@@ -10,88 +10,72 @@
 //
 // The TPU built a banded K tile in VMEM and contracted it with a one-hot of
 // the reads on the MXU.  Each output cell is a selection (at most one
-// non-zero per j), so here it is a gather-sum: a block owns one instance and
-// TP = 32 consecutive positions, builds the tile kw[j][c][t] (L*5*TP floats,
-// 64.6 KB at L = 101) once in shared memory with precise logf, then every
-// read is scored against it.  No one-hot and no K ever reach device memory.
-//
-// What bounds it on an H100: the shared-memory gather (P * TP * L loads per
-// block) once the tile is built; the tile's L*5*TP logf are amortised over
-// all P reads.  Lanes are positions, so a warp reads 32 consecutive floats of
-// one (j, c) row: no bank conflicts; the read's code is warp-uniform.
-// f32 throughout (FMA contraction allowed, no fast-math), each cell summed
-// over j in ascending order, no atomics: ties stay ties run to run.
+// non-zero per j), so here it is a gather-sum over band_core.cuh: a block
+// stages the log factors of its positions once in shared memory, with
+// precise logf (L * 5 * TP of them, amortised over all P reads), and scores
+// every read against them.  No one-hot and no K ever reach device memory.
+// What bounds it on an H100: the core's shared-memory loads (see there).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_core.cuh"
 #include <math.h>
 
+// The tile's shape: positions per lane, reads per warp at a time, warps per
+// block, blocks per SM the shared memory is planned for.  A source that
+// tries another shape defines this before it includes this file.  Two
+// positions a lane, one read a warp at a time, 32 warps and an SM to
+// itself: measured against 1 and 4 positions, 2 to 8 reads, 8 to 24 warps
+// and 2 or 3 blocks an SM, the fastest or within 8% of it, for K2 and both
+// forms of K3, at every instance batch the main path sends (64 to 495) and
+// at the unmapped mode's full width.
+#ifndef BAND_SOFT_TILE
+#define BAND_SOFT_TILE 2, 1, 32, 1
+#endif
+
+// Instance i's log factor of base c at read position j on window row w.
+struct SoftTile {
+  const float* A;  // (R, 5)
+  const float* B;  // (R, 5)
+  const float* e;  // (L,)
+  __device__ __forceinline__ float operator()(int w, int j, int c) const {
+    const float ej = e[j], a = A[w * 5 + c], b = B[w * 5 + c];
+    return logf(fmaxf(a * (1.0f - ej) + ej * b, 1e-30f));
+  }
+};
+
+struct SoftMake {
+  const float *A, *B, *e;
+  int R;
+  __device__ __forceinline__ SoftTile operator()(size_t i) const {
+    return SoftTile{A + i * R * 5, B + i * R * 5, e};
+  }
+};
+
+#ifdef __CUDACC__
 namespace {
-
-constexpr int TP = 32;    // positions per block, one per lane
-constexpr int WARPS = 8;  // reads scored concurrently per block
-
-__global__ void band_soft_kernel(const int8_t* __restrict__ codes,
-                                 const uint8_t* __restrict__ valid,
-                                 const float* __restrict__ A,
-                                 const float* __restrict__ B,
-                                 const float* __restrict__ e,
-                                 float* __restrict__ out, int P, int L, int R,
-                                 int Wp) {
-  extern __shared__ float kw[];  // [L][5][TP]
-  const int inst = blockIdx.y;
-  const int p0 = blockIdx.x * TP;
-  const float* Ai = A + (size_t)inst * R * 5;
-  const float* Bi = B + (size_t)inst * R * 5;
-  const int n = L * 5 * TP;
-  for (int idx = threadIdx.y * TP + threadIdx.x; idx < n; idx += TP * WARPS) {
-    const int t = idx % TP;
-    const int c = (idx / TP) % 5;
-    const int j = idx / (TP * 5);
-    const int w = p0 + t + j;
-    float a = 0.0f, b = 0.0f;
-    if (w < R) {
-      a = Ai[w * 5 + c];
-      b = Bi[w * 5 + c];
-    }
-    const float ej = e[j];
-    kw[idx] = logf(fmaxf(a * (1.0f - ej) + ej * b, 1e-30f));
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int p = p0 + t;
-  if (p >= Wp) return;
-  for (int r = threadIdx.y; r < P; r += WARPS) {
-    const size_t row = (size_t)inst * P + r;
-    const int8_t* cr = codes + row * L;
-    const uint8_t* vr = valid + row * L;
-    float s = 0.0f;
-    for (int j = 0; j < L; ++j) {
-      const int c = cr[j];
-      if (vr[j] && c >= 0 && c < 5) s += kw[(j * 5 + c) * TP + t];
-    }
-    out[row * Wp + p] = s;
-  }
+template <int NQ, int NR, int NW, int BPS>
+int stage_bytes(int L) {
+  return band_core::plan<NQ, NR, NW, BPS>(L).bytes;
 }
-
+template <int NQ, int NR, int NW, int BPS>
+int launch(const SoftMake& m, const void* codes, const void* valid, void* out,
+           int I, int P, int L, int Wp, void* stream) {
+  return band_core::launch<NQ, NR, NW, BPS>(m, codes, valid, out, I, P, L,
+                                            Wp, stream);
+}
 }  // namespace
 
-// codes (I, P, L) int8; valid (I, P, L) uint8; A, B (I, R, 5) f32 with
+// The dynamic shared memory a block asks for at read length L (for reports).
+extern "C" int band_soft_stage_bytes(int L) {
+  return stage_bytes<BAND_SOFT_TILE>(L);
+}
+
+// codes (I, P, L) int8; valid (I, P, L) bool; A, B (I, R, 5) f32 with
 // R >= Wp + L - 1; e (L,) f32; out (I, P, Wp) f32.
 extern "C" int band_soft_launch(const void* codes, const void* valid,
                                 const void* A, const void* B, const void* e,
                                 void* out, int I, int P, int L, int R, int Wp,
                                 void* stream) {
-  if (I == 0 || P == 0 || Wp == 0) return 0;
-  if (I > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = L * 5 * TP * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_soft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Wp + TP - 1) / TP, I);
-  const dim3 block(TP, WARPS);
-  band_soft_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const uint8_t*)valid, (const float*)A,
-      (const float*)B, (const float*)e, (float*)out, P, L, R, Wp);
-  return (int)cudaGetLastError();
+  const SoftMake m{(const float*)A, (const float*)B, (const float*)e, R};
+  return launch<BAND_SOFT_TILE>(m, codes, valid, out, I, P, L, Wp, stream);
 }
+#endif

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from ..ops.band import CASCADE_GROUP as _CASCADE_GROUP
-from ..ops.band import (MASKED, band_score, band_score_soft, cascade_counts,
-                        fold_counts, level_weight)
+from ..ops.band import (MASKED, band_score_hard, band_score_soft,
+                        cascade_counts, fold_counts, level_weight)
 
 LN10 = float(np.log(10.0))
 NEG = -1e30
@@ -137,22 +137,6 @@ def compute_error_probs_gap(probs: torch.Tensor, et: torch.Tensor):
     diag = torch.cat([torch.diagonal(et)[:4],
                       torch.zeros(1, dtype=et.dtype, device=et.device)])
     return b - probs * diag
-
-
-def hard_K(gap_string: torch.Tensor, e_match, e_mis, ln_et) -> torch.Tensor:
-    """Log factors vs a fixed consensus, flat j-major (I, R, L*5):
-    column j*5+c = a_j if c == g[w] else b_j + lnET[g[w], c]; 0 where the
-    window runs outside the contig (g >= 5)."""
-    L = e_match.shape[0]
-    gs = torch.clamp_max(gap_string, 4).long()                  # (I, R)
-    shape = gs.shape + (L, 5)
-    lnrow5 = ln_et.to(torch.float32)[gs][..., None, :].expand(shape)
-    c = torch.arange(5, device=gs.device)
-    ismatch5 = (gs[..., None] == c)[..., None, :].expand(shape)
-    a5 = e_match[:, None].expand(L, 5)
-    b5 = e_mis[:, None].expand(L, 5)
-    K = torch.where(ismatch5, a5, b5 + lnrow5).reshape(gs.shape + (-1,))
-    return torch.where((gap_string >= 5)[..., None], 0.0, K)
 
 
 def consensus_from_counts(counts, gap_zone, check: int, cov_thresh):
@@ -378,9 +362,9 @@ def _score_soft_band(codes, valid, probs, eprobs, e_pos, p0, cfg):
 
 def _score_hard_band(codes, valid, gap_string, model, p0, cfg):
     n = _band_w(cfg) + cfg.L
-    Kh = hard_K(_take(gap_string, p0, n), model["a_fwd"], model["b_fwd"],
-                model["ln_et"])
-    return band_score(codes, valid, Kh, _band_w(cfg))
+    return band_score_hard(codes, valid, _take(gap_string, p0, n),
+                           model["a_fwd"], model["b_fwd"], model["ln_et"],
+                           _band_w(cfg))
 
 
 def _combine_bands_max(s1, s2, p0r):

@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain C entry point that takes pointers and the
-stream as ``void*`` and returns ``cudaGetLastError()``.  A source is compiled
-at first use for ``sm_90a`` into ``figbird_tpu_torch/_build/`` under a name
-that carries the hash of the source, of every header ``csrc/*.cuh`` and of
-the flags, so an edited source or header is rebuilt and an unchanged one is
-loaded as it is.  ``build()`` starts one
-``nvcc`` per source, all at once, and waits for them together.
+Each ``csrc/<name>.cu`` has plain C entry points (``ENTRY``; ``band_hard.cu``
+has two) that take pointers and the stream as ``void*`` and return
+``cudaGetLastError()``.  A source is compiled at first use for ``sm_90a``
+into ``figbird_tpu_torch/_build/`` under a name that carries the hash of the
+source, of every header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.  ``build()``
+starts one ``nvcc`` per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -25,20 +25,22 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-# each source's C launcher: name and argument types (pointers and the stream
-# as void*); every launcher returns cudaGetLastError() as an int
+# each C launcher: its source, entry point and argument types (pointers and
+# the stream as void*); every launcher returns cudaGetLastError() as an int
 ENTRY = {
-    "align_score": ("score_candidates_launch",
+    "align_score": ("align_score", "score_candidates_launch",
                     (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P)),
-    "band_soft": ("band_soft_launch",
+    "band_soft": ("band_soft", "band_soft_launch",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "band_hard": ("band_hard_launch",
+    "band_hard": ("band_hard", "band_hard_launch",
                   (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "fold": ("fold_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "cascade": ("cascade_launch",
+    "band_hard_gap": ("band_hard", "band_hard_gap_launch",
+                      (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "fold": ("fold", "fold_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "cascade": ("cascade", "cascade_launch",
                 (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
 }
-SOURCES = tuple(ENTRY)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY.values()))
 # no --use_fast_math and no -ftz=true: the soft-pass kernel needs precise
 # logf, the cascade precise expf whose f32 denormals stay denormals
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,14 +96,14 @@ def build(names=SOURCES) -> float:
 
 
 def launcher(name: str):
-    """The C launcher of source ``name``, typed (built and loaded first if
-    needed)."""
+    """The C launcher ``name`` of ``ENTRY``, typed (its source built and
+    loaded first if needed)."""
     with _lock:
         fn = _launchers.get(name)
         if fn is None:
-            build([name])
-            entry, argtypes = ENTRY[name]
-            fn = getattr(ctypes.CDLL(str(target(name))), entry)
+            src, entry, argtypes = ENTRY[name]
+            build([src])
+            fn = getattr(ctypes.CDLL(str(target(src))), entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _launchers[name] = fn

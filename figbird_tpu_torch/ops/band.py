@@ -10,6 +10,11 @@ package ``vmap``s over instances; here the instance axis I leads):
 * ``band_score`` (K3, ``csrc/band_hard.cu``) — the banded score from a
   precomputed log-factor tensor K; replaces ``_band_kernel``.  Plain
   version: ``band_score_reference``.
+* ``band_score_hard`` (K3's second entry point, the one the EM calls) —
+  the same score with K's entries built inside the kernel from the gap
+  string (``hard_K``), so K never reaches device memory; bit-equal to
+  ``band_score`` on ``hard_K``'s output.  Plain version: ``hard_K`` +
+  ``band_score_plain``.
 * ``fold_counts`` (K4, ``csrc/fold.cu``) — weights x count one-hot with
   the diagonal fold; replaces ``_fold_kernel``.  Plain version: the
   c-major one-hot matmul + ``_fold_counts_T`` skew fold of
@@ -24,6 +29,8 @@ package ``vmap``s over instances; here the instance axis I leads):
 
 K4 and K1 are two thin kernels over one device function,
 ``csrc/count_core.cuh``: the count product and the diagonal fold in f32.
+K2 and K3 are thin kernels over another, ``csrc/band_core.cuh``: the banded
+gather-sum of log factors staged in shared memory.
 
 The kernels take the reads as codes plus a per-base mask (K2, K3) or a
 per-base count value (K1, K4) and build no one-hot; the plain versions build
@@ -67,11 +74,33 @@ def soft_K(probs: torch.Tensor, eprobs: torch.Tensor,
     return torch.log(torch.clamp_min(F, 1e-30))
 
 
+def hard_K(gap_string: torch.Tensor, e_match, e_mis, ln_et) -> torch.Tensor:
+    """Log factors vs a fixed consensus, flat j-major (I, R, L*5):
+    column j*5+c = a_j if c == g[w] else b_j + lnET[g[w], c]; 0 where the
+    window runs outside the contig (g >= 5)."""
+    L = e_match.shape[0]
+    gs = torch.clamp_max(gap_string, 4).long()                  # (I, R)
+    shape = gs.shape + (L, 5)
+    lnrow5 = ln_et.to(torch.float32)[gs][..., None, :].expand(shape)
+    c = torch.arange(5, device=gs.device)
+    ismatch5 = (gs[..., None] == c)[..., None, :].expand(shape)
+    a5 = e_match[:, None].expand(L, 5)
+    b5 = e_mis[:, None].expand(L, 5)
+    K = torch.where(ismatch5, a5, b5 + lnrow5).reshape(gs.shape + (-1,))
+    return torch.where((gap_string >= 5)[..., None], 0.0, K)
+
+
 def band_score_plain(codes: torch.Tensor, valid: torch.Tensor,
                      K: torch.Tensor, Wp: int) -> torch.Tensor:
     """score[i, r, p] = sum_j K[i, p+j, 5j + codes[i, r, j]] over valid j:
     the skew-materialised banded Kw and one batched matmul
     (``band_score_reference``).  codes/valid (I, P, L), K (I, R, 5L)."""
+    return band_score_onehot(oh_flat_j(codes, valid), K, Wp)
+
+
+def band_score_onehot(oh: torch.Tensor, K: torch.Tensor,
+                      Wp: int) -> torch.Tensor:
+    """``band_score_plain`` from the reads' flat j-major one-hot (I, P, 5L)."""
     I, R, LC = K.shape
     L = LC // 5
     Kt = K.reshape(I, R, L, 5).transpose(1, 2).reshape(I, L * R, 5)
@@ -79,11 +108,15 @@ def band_score_plain(codes: torch.Tensor, valid: torch.Tensor,
     skew = torch.cat([Kt, pad], dim=1)[:, : L * (R + 1)].reshape(
         I, L, R + 1, 5)
     Kw = skew[:, :, :Wp].transpose(1, 2).reshape(I, Wp, LC)
-    return torch.bmm(oh_flat_j(codes, valid), Kw.transpose(1, 2))
+    return torch.bmm(oh, Kw.transpose(1, 2))
 
 
 def band_score_soft_plain(codes, valid, A, B, e_pos, Wp: int):
     return band_score_plain(codes, valid, soft_K(A, B, e_pos), Wp)
+
+
+def band_score_hard_plain(codes, valid, gap_string, a, b, ln_et, Wp: int):
+    return band_score_plain(codes, valid, hard_K(gap_string, a, b, ln_et), Wp)
 
 
 def fold_T(cwT: torch.Tensor, L: int, W: int) -> torch.Tensor:
@@ -190,6 +223,38 @@ def band_score(codes: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
         codes.data_ptr(), valid.data_ptr(), K.data_ptr(), out.data_ptr(), I,
         P, L, R, Wp, stream(codes.device))
     check(err, "band_score")
+    LAUNCHES["band_hard"] += 1
+    return out
+
+
+def band_score_hard(codes: torch.Tensor, valid: torch.Tensor,
+                    gap_string: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, ln_et: torch.Tensor,
+                    Wp: int) -> torch.Tensor:
+    """Hard-pass score (I, P, Wp): ``band_score`` on ``hard_K(gap_string, a,
+    b, ln_et)``, K's entries built inside the kernel.  gap_string (I, R)
+    int8 codes 0..5 with R >= Wp + L - 1; a, b (L,); ln_et (5, 5)."""
+    if codes.device.type == "cpu":
+        return band_score_hard_plain(codes, valid, gap_string, a, b, ln_et,
+                                     Wp)
+    require_cuda(codes, "band_score_hard")
+    _check_rows(codes, valid, "band_score_hard")
+    I, P, L = codes.shape
+    R = gap_string.shape[1]
+    if gap_string.dtype != torch.int8 or gap_string.shape != (I, R) \
+            or R < Wp + L - 1 or a.shape != (L,) or b.shape != (L,) \
+            or ln_et.shape != (5, 5):
+        raise ValueError("band_score_hard: gap_string int8 (I, R>=Wp+L-1), "
+                         "a and b (L,), ln_et (5, 5)")
+    codes, valid = codes.contiguous(), valid.contiguous()
+    gap_string = gap_string.contiguous()
+    a, b, ln_et = (x.to(torch.float32).contiguous() for x in (a, b, ln_et))
+    out = torch.empty((I, P, Wp), dtype=torch.float32, device=codes.device)
+    err = launcher("band_hard_gap")(
+        codes.data_ptr(), valid.data_ptr(), gap_string.data_ptr(),
+        a.data_ptr(), b.data_ptr(), ln_et.data_ptr(), out.data_ptr(), I, P,
+        L, R, Wp, stream(codes.device))
+    check(err, "band_score_hard")
     LAUNCHES["band_hard"] += 1
     return out
 

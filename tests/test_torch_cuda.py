@@ -38,36 +38,80 @@ def _close(got, want, rtol, atol):
                                rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("I,P,L,Wp", [(3, 37, 50, 70), (1, 8, 101, 128)])
-def test_band_scores_match_plain(dev, I, P, L, Wp):
-    """K2 and K3: codes 0-5 (5 pads rows past a window), masked bases."""
-    rng = np.random.default_rng(11)
+def _band_inputs(dev, seed, I, P, L, Wp):
+    """Codes 0-5 (5 pads rows past a window), masked bases; probability
+    slabs with rows of 0 (the 1e-30 clamp); K; a gap string with Ns (4) and
+    positions past the contig (5), and the model's log factors."""
+    rng = np.random.default_rng(seed)
     R = Wp + L + 3
-    codes = torch.as_tensor(rng.integers(0, 6, (I, P, L)).astype(np.int8),
-                            device=dev)
-    valid = torch.as_tensor(rng.random((I, P, L)) < 0.8, device=dev)
+    codes = rng.integers(0, 6, (I, P, L)).astype(np.int8)
+    valid = rng.random((I, P, L)) < 0.8
     probs = rng.random((I, R, 5)).astype(np.float32)
     probs[..., 4] = 0.0
-    probs[:, 5:9] = 0.0  # factors of exactly 0: the 1e-30 clamp
-    probs = torch.as_tensor(probs / np.maximum(probs.sum(-1, keepdims=True),
-                                               1e-9), device=dev)
-    eprobs = torch.as_tensor(rng.random((I, R, 5)).astype(np.float32) * 1e-2,
-                             device=dev)
-    e_pos = torch.as_tensor(rng.random(L).astype(np.float32) * 1e-2,
-                            device=dev)
-    K = torch.as_tensor(-8 * rng.random((I, R, 5 * L)).astype(np.float32),
-                        device=dev)
+    probs[:, 5:9] = 0.0
+    probs = probs / np.maximum(probs.sum(-1, keepdims=True), 1e-9)
+    eprobs = rng.random((I, R, 5)).astype(np.float32) * 1e-2
+    e_pos = rng.random(L).astype(np.float32) * 1e-2
+    K = -8 * rng.random((I, R, 5 * L)).astype(np.float32)
+    g = rng.integers(0, 6, (I, R)).astype(np.int8)
+    a = -rng.random(L).astype(np.float32) * 0.1
+    b = (-2.0 - 4.0 * rng.random(L)).astype(np.float32)
+    ln_et = -3.0 * rng.random((5, 5)).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (
+        codes, valid, probs, eprobs, e_pos, K, g, a, b, ln_et)]
 
-    got, once = _launched("band_soft", lambda: band.band_score_soft(
-        codes, valid, probs, eprobs, e_pos, Wp))
+
+def _check_bands(dev, seed, I, P, L, Wp):
+    """K2, K3's K form and K3's gap-string form against their plain
+    versions (K2 rtol 1e-5, atol 1e-3; K3 rtol 1e-5, atol 1e-4), one launch
+    each, a second launch bit-equal, and the gap-string form bit-equal to
+    the K form on ``hard_K``'s output."""
+    codes, valid, probs, eprobs, e_pos, K, g, a, b, ln_et = _band_inputs(
+        dev, seed, I, P, L, Wp)
+    soft = lambda: band.band_score_soft(  # noqa: E731
+        codes, valid, probs, eprobs, e_pos, Wp)
+    hard_k = lambda: band.band_score(codes, valid, K, Wp)  # noqa: E731
+    hard_g = lambda: band.band_score_hard(  # noqa: E731
+        codes, valid, g, a, b, ln_et, Wp)
+    got, once = _launched("band_soft", soft)
     assert once and got.shape == (I, P, Wp)
     _close(got, band.band_score_soft_plain(codes, valid, probs, eprobs,
                                            e_pos, Wp), 1e-5, 1e-3)
-    got, once = _launched("band_hard", lambda: band.band_score(
-        codes, valid, K, Wp))
+    assert torch.equal(got, soft())
+    got, once = _launched("band_hard", hard_k)
     assert once
     _close(got, band.band_score_plain(codes, valid, K, Wp), 1e-5, 1e-4)
-    assert torch.equal(got, band.band_score(codes, valid, K, Wp))
+    assert torch.equal(got, hard_k())
+    got, once = _launched("band_hard", hard_g)
+    assert once
+    _close(got, band.band_score_hard_plain(codes, valid, g, a, b, ln_et, Wp),
+           1e-5, 1e-4)
+    assert torch.equal(got, hard_g())
+    assert torch.equal(got, band.band_score(
+        codes, valid, band.hard_K(g, a, b, ln_et), Wp))
+
+
+@pytest.mark.parametrize("I,P,L,Wp", [(3, 37, 50, 70), (1, 8, 101, 128),
+                                      (2, 1, 7, 5), (1, 37, 7, 70)])
+def test_band_scores_match_plain(dev, I, P, L, Wp):
+    """K2 and both forms of K3: codes 0-5, masked bases, gap strings with
+    Ns and positions past the contig; repeats bit-equal."""
+    _check_bands(dev, 11, I, P, L, Wp)
+
+
+@pytest.mark.parametrize("L", [151, 250])
+def test_bands_long_reads_right_or_refused(dev, L):
+    """Reads longer than a pass of the core holds: the kernels score them in
+    several passes and are right, or their wrappers raise."""
+    try:
+        _check_bands(dev, 15, 2, 37, L, 140)
+    except RuntimeError as e:
+        assert "launch failed" in str(e)
+
+
+def test_bands_many_instances(dev):
+    """70,000 tiny instances: more than a grid's second dimension holds."""
+    _check_bands(dev, 16, 70_000, 2, 7, 5)
 
 
 @pytest.mark.parametrize("quality", [False, True])

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 from figbird_tpu.align.core import _score_candidates, as_rows
 from figbird_tpu.fill.em import (_CASCADE_CUT, _CASCADE_SHIFT,
                                  _accumulate_levels, _fold_counts_T,
-                                 _oh_flat_c, _oh_flat_j, _soft_K)
+                                 _hard_K, _oh_flat_c, _oh_flat_j, _soft_K)
 from figbird_tpu.ops.align_score import score_candidates_scan
 from figbird_tpu.ops.band import (_band_score_pallas, _band_score_soft_pallas,
                                   band_score_reference)
@@ -63,6 +63,29 @@ def test_band_score_hard(I, R, W, L):
         pallas = np.asarray(_band_score_pallas(oh, jnp.asarray(K[i]), Wp))
         np.testing.assert_allclose(got[i], xla, rtol=1e-5, atol=1e-4)
         np.testing.assert_allclose(got[i], pallas, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("I,R,W,L", [(1, 8, 160, 12), (2, 30, 200, 33)])
+def test_band_score_hard_from_gap_string(I, R, W, L):
+    """K3's gap-string form (the hard pass's call) against the reference's
+    ``_hard_K`` and ``band_score_reference``, at ``test_band_score_hard``'s
+    shapes: gap strings with Ns (4) and positions past the contig (5)."""
+    rng = np.random.default_rng(2)
+    Wp = W - L
+    g = rng.integers(0, 6, (I, W)).astype(np.int8)
+    a = -rng.random(L).astype(np.float32) * 0.1
+    b = (-2.0 - 4.0 * rng.random(L)).astype(np.float32)
+    ln_et = -3.0 * rng.random((5, 5)).astype(np.float32)
+    codes, valid = _reads(rng, I, R, L)
+    got = t_band.band_score_hard(
+        *(torch.as_tensor(x) for x in (codes, valid, g, a, b, ln_et)),
+        Wp).numpy()
+    for i in range(I):
+        oh = _oh_flat_j(jnp.asarray(codes[i]), jnp.asarray(valid[i]))
+        K = _hard_K(jnp.asarray(g[i]), jnp.asarray(a), jnp.asarray(b),
+                    jnp.asarray(ln_et))
+        xla = np.asarray(band_score_reference(oh, K, Wp))
+        np.testing.assert_allclose(got[i], xla, rtol=1e-5, atol=1e-4)
 
 
 def test_band_score_soft_clamp():

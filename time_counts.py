@@ -15,7 +15,7 @@ tile shape (rows per thread, warps per block, blocks per SM) and include it,
 
 Every source is built with the port's compiler flags (``csrc/`` is on the
 include path), checked against the plain version (rtol 2e-6, atol 0; K1 also
-zeros in the same places) and timed with CUDA events (median of 25), twice,
+zeros in the same places) and timed with CUDA events (``cuda_ms``), twice,
 the second round in reverse order; K4 also beside its library chain (one
 batched matmul against a prebuilt one-hot, and the fold).  Shapes: the banded
 scan shape of the main path (K1 at m = 6 and m = 3) and its smaller instance
@@ -51,7 +51,12 @@ SHAPES = ((495, 128, 101, 128, 6), (495, 128, 101, 128, 3),
           (123, 512, 101, 613, 6), (64, 1024, 101, 128, 6))
 
 
-def cuda_ms(fn, reps: int = 25) -> float:
+def cuda_ms(fn, reps: int = 10, batch: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: the median over ``reps``
+    CUDA-event timings of ``batch`` calls in a row, each divided by
+    ``batch`` (after 3 warm-up calls).  The calls queue behind each other,
+    so the host's cost of a launch is hidden wherever the device is busier
+    than the host."""
     for _ in range(3):
         fn()
     times = []
@@ -59,38 +64,42 @@ def cuda_ms(fn, reps: int = 25) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
-def build(sources, out_dir: Path) -> dict:
-    """One nvcc per source, all at once; kernel -> {name: typed launcher}."""
+def build(sources, out_dir: Path, kernels=("cascade", "fold")) -> dict:
+    """One nvcc per source, all at once; kernel -> {source: typed launcher}
+    for each of ``kernels`` (keys of ``_build.ENTRY``) a source exports,
+    each with the source's ``<name>_stage_bytes`` report (None without)."""
     jobs = []
-    for src in sources:
-        lib = out_dir / f"lib{src.stem}.so"
+    for i, src in enumerate(sources):
+        lib = out_dir / f"lib{i}_{src.stem}.so"
         jobs.append((src, lib, subprocess.Popen(
             [_build._nvcc(), *_build.FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = {"cascade": {}, "fold": {}}
+    fns = {kernel: {} for kernel in kernels}
     for src, lib, proc in jobs:
+        label = f"{src.parent.name}/{src.name}"
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         for ln in log.splitlines():
             if "registers" in ln or re.search(r"\b[1-9]\d* bytes spill", ln):
-                print(f"# built {src.name}: {ln.split(':')[-1].strip()}",
+                print(f"# built {label}: {ln.split(':')[-1].strip()}",
                       flush=True)
         cdll = ctypes.CDLL(str(lib))
-        for kernel in fns:
-            entry, argtypes = _build.ENTRY[kernel]
+        for kernel in kernels:
+            source, entry, argtypes = _build.ENTRY[kernel]
             if hasattr(cdll, entry):
                 fn = getattr(cdll, entry)
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
-                fn.stage_bytes = getattr(cdll, f"{kernel}_stage_bytes")
-                fns[kernel][src.stem] = fn
+                fn.stage_bytes = getattr(cdll, f"{source}_stage_bytes", None)
+                fns[kernel][label] = fn
     return fns
 
 
