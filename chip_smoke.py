@@ -22,7 +22,10 @@ Phases (every one must pass; none is caught):
    of the kernel, of the plain version and of the library chain (one
    batched matmul against a prebuilt one-hot: for K1 and K4 plus the fold,
    for K2 and K3 after soft_K or hard_K and the skew; K5 has none); the
-   least time the card could take for the same work (``bound_ms``).
+   least time the card could take for the same work (``bound_ms``).  K5 at
+   the aligner's two shapes, its cheap pass (32,768 reads x 8 candidates,
+   mixed as the main path's are) and its full pass (x 32, scattered), all
+   five outputs bit-equal and two launches bit-equal.
 3. parity  — the port's p-iteration on CUDA vs the same on the CPU (plain
    versions) on the 120 kb simulation of tests/test_pipeline.py, at the
    production default and at exact_soft=False: aligner outputs must be
@@ -31,7 +34,8 @@ Phases (every one must pass; none is caught):
    insert 200, 10x) through Pipeline.run_iteration("p", 0) on the card, at
    the production default (default fill_kwargs: all five kernels launched)
    and at exact_soft=False (the four kernels of that path launched), each
-   with the launch counts set to 0 just before and read just after: N
+   with the launch counts set to 0 just before and read just after (K5's
+   also by candidates a read): N
    reduced, filled-base accuracy vs the truth >= 0.95; wall time, reads/s
    and the stage split; then each once more, warm, for the wall ratio.
    ``--profile`` adds one default iteration under torch.profiler and prints
@@ -58,6 +62,7 @@ from figbird_tpu_torch.fill import em  # noqa: E402
 from figbird_tpu_torch.ops import _build  # noqa: E402
 from figbird_tpu_torch.ops import band, align_score  # noqa: E402
 from figbird_tpu_torch.pipeline import Pipeline  # noqa: E402
+from time_align import align_bound, align_inputs  # noqa: E402
 from time_bands import band_inputs  # noqa: E402
 from time_counts import cuda_ms  # noqa: E402
 
@@ -72,12 +77,15 @@ SHIFT, CUT = em._CASCADE_SHIFT, em._CASCADE_CUT
 # the main path's shapes: the scan batch of the (512, 128) bucket (instances,
 # reads, read length, band width); the instance batch of its finalize, the
 # only one K4 sees at the default, and the other batches below the scan's
-# that K4 sees at exact_soft=False; the aligner's extend step (genome, reads,
-# candidates); the unmapped mode's 512-read bucket (reads, gap bucket)
+# that K4 sees at exact_soft=False; the aligner's extend step on the bench
+# genome's size, its cheap pass and its full pass (reads, candidates,
+# time_align.align_inputs' mix); the unmapped mode's 512-read bucket (reads,
+# gap bucket)
 SCAN_SHAPE = (495, 128, 101, 128)
 FINALIZE_BATCH = 64
 PARTIAL_BATCHES = (128, 256)
-ALIGN_SHAPE = (4_600_000, 32768, 32)
+ALIGN_GENOME = 4_600_000
+ALIGN_SHAPES = ((32768, 8, "main"), (32768, 32, "scattered"))
 FULL_WIDTH = (512, 512)
 
 
@@ -252,6 +260,68 @@ def check_bands(b_in, Wp, what, time_forms=("K2", "K form", "gap form")):
                              f"the K form")
 
 
+def check_align(g):
+    """K5 at the aligner's two main-path shapes on the bench genome's size:
+    its cheap pass (C = 8, candidates mixed as the main path's are) and its
+    full pass (C = 32, scattered).  All five outputs bit-equal to the plain
+    version, two launches bit-equal; timed in the order plain, kernel,
+    wrapper, wrapper, kernel, plain: the kernel through its C launcher (the
+    row's time), the wrapper's whole call (at C = 8 the host's cost of a
+    call is about the kernel's time), the plain version.  No one PyTorch call
+    gathers candidate windows and scores them, so there is no library
+    time.  The row of the kernels line is the cheap pass's, the shape of
+    most of the main path's launches."""
+    rows = []
+    for B, C, mix in ALIGN_SHAPES:
+        flat, reads, cand = align_inputs(g, ALIGN_GENOME, B, C, 101, mix)
+        args = (flat, reads, cand, 2, -6, dtypes.GAP_CODE)
+
+        def wrapper():
+            return align_score.score_candidates(*args)
+
+        def plain():
+            return align_score.score_candidates_plain(*args)
+
+        out = torch.empty((5, B * C), dtype=torch.int32, device=DEV)
+        call = (flat.data_ptr(), reads.data_ptr(), cand.data_ptr(),
+                out.data_ptr(), B * C, flat.numel(), C, 101, 2, -6,
+                dtypes.GAP_CODE, torch.cuda.current_stream(DEV).cuda_stream)
+
+        def kernel():
+            _build.check(_build.launcher("align_score")(*call), "align_score")
+
+        def planes(res):
+            return torch.stack(list(res.values()))
+        got, again, want = planes(wrapper()), planes(wrapper()), \
+            planes(plain())
+        torch.cuda.synchronize()
+        equal, repeat = torch.equal(got, want), torch.equal(got, again)
+        err = float((got - want).abs().max())
+        p1, k1, w1, w2, k2, p2 = (cuda_ms(f) for f in (
+            plain, kernel, wrapper, wrapper, kernel, plain))
+        ms, wrapper_ms, plain_ms = min(k1, k2), min(w1, w2), min(p1, p2)
+        bound_ms, bound_by, n_b, n_o = align_bound(flat, reads, cand)
+        log(f"align_score {B} reads x {C} candidates, {mix} candidates: "
+            f"bit-equal {equal}, repeat bit-equal {repeat}, kernel "
+            f"{ms:.4f} ms (the wrapper's call {wrapper_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, library none, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({n_b / 1e6:.1f} MB, "
+            f"{n_o / 1e9:.3f} G operations)")
+        if not (equal and repeat):
+            raise AssertionError(f"align_score at C = {C} disagrees with its "
+                                 f"plain version (max abs err {err}, repeat "
+                                 f"{repeat})")
+        rows.append(dict(name="align_score", route="cuda",
+                         source="figbird_tpu_torch/csrc/align_score.cu",
+                         replaces="figbird_tpu/ops/align_score.py:40",
+                         launches=0, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+        del flat, reads, cand, got, again, want, out
+    torch.cuda.empty_cache()
+    return rows[0]
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -305,19 +375,6 @@ def phase_kernels():
     f_ohT = band.oh_flat_c(f_codes, f_vals).transpose(1, 2).contiguous()
     f_ops = 2 * int(((f_w != 0).sum(-1) * n_val[:n_f]).sum())
 
-    # K5: reads x candidates at read length L on the bench genome's size
-    G, B, C = ALIGN_SHAPE
-    flat = torch.randint(0, 4, (G + 512,), generator=g, device=DEV,
-                         dtype=torch.int8)
-    flat[torch.randint(0, G, (G // 230,), generator=g, device=DEV)] = 4
-    starts = torch.randint(0, G - L - 1, (B,), generator=g, device=DEV)
-    reads = flat[starts[:, None] + j].clone()
-    reads[rand(B, L) < 0.02] = 1
-    reads[::7, 90:] = 4
-    cand = torch.randint(0, G - L - 1, (B, C), generator=g, device=DEV,
-                         dtype=torch.int32)
-    cand[:, 0] = starts.to(torch.int32)
-
     # (name, source, TPU kernel, rtol, atol, kernel, plain, library chain,
     #  bytes in + out, operations)
     specs = [
@@ -360,14 +417,6 @@ def phase_kernels():
          lambda: band.fold_counts_plain(f_w, f_codes, f_vals, R),
          lambda: band.fold_T(torch.bmm(f_ohT, f_w), L, R),
          nbytes(f_w, f_codes, f_vals) + n_f * R * 5 * 4, f_ops),
-        # a compare, a score add and a running-minimum update per base
-        ("align_score", "figbird_tpu_torch/csrc/align_score.cu",
-         "figbird_tpu/ops/align_score.py:40", 0.0, 0.0,
-         lambda: torch.stack(list(align_score.score_candidates(
-             flat, reads, cand, 2, -6, dtypes.GAP_CODE).values())),
-         lambda: torch.stack(list(align_score.score_candidates_plain(
-             flat, reads, cand, 2, -6, dtypes.GAP_CODE).values())),
-         None, nbytes(flat, reads, cand) + 5 * B * C * 4, 3 * B * C * L),
     ]
     rows = []
     for name, src, repl, rtol, atol, kern, plain, lib, n_b, n_o in specs:
@@ -382,11 +431,7 @@ def phase_kernels():
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version (max abs err {err})")
             del got, want
-        if lib is not None:
-            ms, plain_ms, library_ms = timed(kern, plain, lib)
-        else:
-            ms, plain_ms, library_ms = min(cuda_ms(kern), cuda_ms(kern)), \
-                min(cuda_ms(plain), cuda_ms(plain)), None
+        ms, plain_ms, library_ms = timed(kern, plain, lib)
         bound_ms, bound_by = bound(n_b, n_o)
         log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
@@ -397,6 +442,7 @@ def phase_kernels():
                          launches=0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms))
+    rows.append(check_align(g))
     # K2 and K3 at every instance batch the main path sends them, and K3's
     # K form beside its gap-string form (timed at the scan's batch too)
     check_bands(b_in, bw, f"banded, {I} instances", ("K form",))
@@ -518,10 +564,12 @@ def run_main(sim, what, fill_kwargs, expect):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
+    by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
     acc, filled, total = filled_accuracy(sim, pipe.result.gap_history)
     log(f"main path {what}: wall {wall:.2f}s, {n_reads / wall:.0f} reads/s, "
         f"N {st.n_before} -> {st.n_after}, filled-base accuracy {acc:.4f} "
-        f"({filled}/{total} bases filled), launches {launches}")
+        f"({filled}/{total} bases filled), launches {launches}, "
+        f"align_score launches by candidates a read {by_c}")
     pipe.timer.report(sys.stdout)
     log(f"fill stats {what}: {pipe.last_fill_stats}")
     missing = [k for k in expect if launches[k] == 0]
@@ -567,7 +615,7 @@ def busy_share(sim, wall_plain):
     ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
     # the eight largest, then every hand-written kernel below them
     ours = ("band_core::kernel", "cascade_kernel", "fold_kernel",
-            "score_candidates_kernel")
+            "align_score::kernel")
     for i, (name, (t, n)) in enumerate(ranked):
         if i < 8 or any(k in name for k in ours):
             log(f"profile default:   {t / 1e3:8.1f} ms {n:6d} x "

@@ -10,8 +10,11 @@ LAUNCHES = {"cascade": 0, "band_soft": 0, "band_hard": 0, "fold": 0,
 
 
 def reset_launches() -> None:
+    from .align_score import LAUNCHES_BY_C
+
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_C.clear()
 
 
 def require_cuda(t, what: str) -> None:

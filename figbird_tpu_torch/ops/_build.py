@@ -29,7 +29,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # the stream as void*); every launcher returns cudaGetLastError() as an int
 ENTRY = {
     "align_score": ("align_score", "score_candidates_launch",
-                    (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P)),
+                    (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P)),
     "band_soft": ("band_soft", "band_soft_launch",
                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "band_hard": ("band_hard", "band_hard_launch",

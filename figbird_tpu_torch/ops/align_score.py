@@ -8,12 +8,17 @@ _score_candidates``.  Both are integer-exact and bit-equal.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import LAUNCHES, require_cuda
 from ._build import check, launcher, stream
 
 _KEYS = ("local", "e2e", "start", "end", "n_mis")
+# the kernel's launches by candidates per read (the aligner's cheap pass
+# sends C = 8, its full pass C = 32), beside LAUNCHES["align_score"]
+LAUNCHES_BY_C: Counter = Counter()
 
 
 def score_candidates_plain(flat: torch.Tensor, reads: torch.Tensor,
@@ -53,7 +58,8 @@ def score_candidates(flat: torch.Tensor, reads: torch.Tensor,
     """Candidate scoring: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (same signature and outputs).  Every window
     ``flat[cand : cand + L]`` must lie inside ``flat`` (the aligner clamps
-    ``cand`` to ``[0, len(genome) - L - 1]`` of a padded genome)."""
+    ``cand`` to ``[0, len(genome) - L - 1]`` of a padded genome); the kernel
+    reads no byte of ``flat`` outside it."""
     if flat.device.type == "cpu":
         return score_candidates_plain(flat, reads, cand, match, mismatch,
                                       gap_code)
@@ -68,13 +74,18 @@ def score_candidates(flat: torch.Tensor, reads: torch.Tensor,
     B, L = reads.shape
     C = cand.shape[1]
     flat = flat.contiguous()
+    if flat.data_ptr() % 4:            # the kernel loads 4-byte words
+        flat = flat.clone()
     reads = reads.contiguous()
     cand = cand.contiguous()
-    out = torch.empty((B * C, 5), dtype=torch.int32, device=flat.device)
-    err = launcher("align_score")(
-        flat.data_ptr(), reads.data_ptr(), cand.data_ptr(), out.data_ptr(),
-        B * C, C, L, match, mismatch, gap_code, stream(flat.device))
-    check(err, "score_candidates")
-    LAUNCHES["align_score"] += 1
-    out = out.view(B, C, 5)
-    return {k: out[..., i] for i, k in enumerate(_KEYS)}
+    # five planes, so each output is a contiguous (B, C) view
+    out = torch.empty((5, B * C), dtype=torch.int32, device=flat.device)
+    if B * C:
+        err = launcher("align_score")(
+            flat.data_ptr(), reads.data_ptr(), cand.data_ptr(),
+            out.data_ptr(), B * C, flat.numel(), C, L, match, mismatch,
+            gap_code, stream(flat.device))
+        check(err, "score_candidates")
+        LAUNCHES["align_score"] += 1
+        LAUNCHES_BY_C[C] += 1
+    return {k: out[i].view(B, C) for i, k in enumerate(_KEYS)}

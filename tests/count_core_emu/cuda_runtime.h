@@ -1,8 +1,9 @@
-// A stand-in for the CUDA runtime header, for running csrc/count_core.cuh and
-// csrc/band_core.cuh on the CPU: the qualifiers vanish, a block's threads
-// are host threads, __syncthreads() is a barrier of theirs, a warp's
-// collectives (__syncwarp, __ballot_sync) a barrier of its 32, and shared
-// memory is one array.
+// A stand-in for the CUDA runtime header, for running csrc/count_core.cuh,
+// csrc/band_core.cuh and csrc/align_score.cu on the CPU: the qualifiers
+// vanish, a block's threads are host threads, __syncthreads() is a barrier
+// of theirs, a warp's collectives (__syncwarp, __ballot_sync, __shfl_sync)
+// a barrier of its 32, and shared memory is one array.  The byte-permute
+// and funnel-shift intrinsics have CUDA's semantics.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -40,6 +41,31 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// lane src's var, every lane of the warp taking part
+inline int __shfl_sync(unsigned, int var, int src) {
+  unsigned* v = warp_votes[threadIdx.y];
+  v[threadIdx.x] = (unsigned)var;
+  __syncwarp();
+  const int r = (int)v[src & 31];
+  __syncwarp();
+  return r;
+}
+// the low 32 bits of (hi:lo) >> (shift & 31)
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  const unsigned long long v = ((unsigned long long)hi << 32) | lo;
+  return (unsigned)(v >> (shift & 31));
+}
+// result byte n is byte (s >> 4n) & 7 of the eight bytes y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xffu) << (8 * n);
+  return r;
+}
+struct uint4 {
+  unsigned x, y, z, w;
+};
 struct int4 {
   int x, y, z, w;
 };

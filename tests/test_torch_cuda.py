@@ -241,3 +241,69 @@ def test_score_candidates_bit_equal_to_plain(dev):
     want = align_score.score_candidates_plain(*args)
     for k in ("local", "e2e", "start", "end", "n_mis"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("L", [101, 151, 250])
+def test_score_candidates_main_path_counts_bit_equal(dev, C, L):
+    """K5 at the aligner's two candidate counts and three read lengths, on a
+    genome padded as the Aligner pads it (``as_rows``): candidates mostly
+    at the read's true start (ties), the rest anywhere, at 0 and at the last
+    legal start; ragged, N-carrying and all-gap reads; B not a multiple of
+    a warp's reads.  All five outputs bit-equal to the plain version, one
+    launch, a second launch bit-equal."""
+    from figbird_tpu_torch.align.core import as_rows
+
+    rng = np.random.default_rng(L + C)
+    G, B = 50_003, 1_001
+    genome = rng.integers(0, 4, G).astype(np.int8)
+    genome[rng.integers(0, G, 250)] = 4
+    genome[20_000:20_070] = 4
+    flat = as_rows(genome)
+    starts = rng.integers(0, G - L - 1, B)
+    reads = np.stack([flat[s : s + L] for s in starts])
+    reads[rng.random((B, L)) < 0.01] = 1
+    reads[rng.random((B, L)) < 0.005] = 4
+    reads[::5, L - 20 :] = 4
+    reads[7] = 4
+    cand = rng.integers(0, G - L - 1, (B, C)).astype(np.int32)
+    near = rng.random((B, C)) < 0.75
+    cand[near] = np.broadcast_to(starts[:, None], (B, C))[near]
+    cand[:, -1] = G - L - 1
+    cand[::3, -2] = 0
+    cand[:5, 1] = 19_990
+    args = (torch.as_tensor(flat, device=dev),
+            torch.as_tensor(reads, device=dev),
+            torch.as_tensor(cand, device=dev), 2, -6, 4)
+    got, once = _launched("align_score",
+                          lambda: align_score.score_candidates(*args))
+    assert once
+    again = align_score.score_candidates(*args)
+    want = align_score.score_candidates_plain(*args)
+    for k in ("local", "e2e", "start", "end", "n_mis"):
+        assert got[k].shape == (B, C) and got[k].is_contiguous(), k
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_score_candidates_wide_state_bit_equal(dev):
+    """Scores too large for the kernel's 32-bit packed state (match 20000,
+    mismatch -30000) take its 64-bit form: all five outputs bit-equal."""
+    rng = np.random.default_rng(17)
+    G, B, C, L = 20_000, 300, 8, 101
+    flat = np.full(G + 256, 4, np.int8)
+    flat[:G] = rng.integers(0, 4, G)
+    starts = rng.integers(0, G - L - 1, B)
+    reads = np.stack([flat[s : s + L] for s in starts])
+    reads[rng.random((B, L)) < 0.03] = 0
+    cand = rng.integers(0, G - L - 1, (B, C)).astype(np.int32)
+    cand[:, ::3] = starts[:, None]
+    args = (torch.as_tensor(flat, device=dev),
+            torch.as_tensor(reads, device=dev),
+            torch.as_tensor(cand, device=dev), 20000, -30000, 4)
+    got, once = _launched("align_score",
+                          lambda: align_score.score_candidates(*args))
+    assert once
+    want = align_score.score_candidates_plain(*args)
+    for k in ("local", "e2e", "start", "end", "n_mis"):
+        assert torch.equal(got[k], want[k]), k
