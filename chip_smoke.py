@@ -26,10 +26,23 @@ Phases (every one must pass; none is caught):
    the aligner's two shapes, its cheap pass (32,768 reads x 8 candidates,
    mixed as the main path's are) and its full pass (x 32, scattered), all
    five outputs bit-equal and two launches bit-equal.
+   The unmapped mode's shapes (every read at every position of the
+   window): the u main path's own bucket, 128 reads x gap bucket 512, at
+   both its width classes (Wp 613 and 229), and the full-width buckets of
+   1,024 reads x 512 and 3,072 reads x 128; K1 (m = 6) and K4 at each, K2
+   and both K3 forms (reverse strand's factors) at all but the last, each
+   at the instance batch that fill_gaps' memory cap gives that bucket:
+   checked and timed the same way.  On the kernels line each is a row of
+   its own (``shape``) carrying the u-iteration's launches at its (reads,
+   positions); a row whose shape the u-iteration did not launch sits under
+   ``not_on_main_path`` of its kernel's row.
 3. parity  — the port's p-iteration on CUDA vs the same on the CPU (plain
    versions) on the 120 kb simulation of tests/test_pipeline.py, at the
    production default and at exact_soft=False: aligner outputs must be
-   equal; equal gap strings are reported for each configuration.
+   equal; equal gap strings are reported for each configuration.  Then a
+   u-iteration (``run_iteration("u", 0)``) on the same simulation, card
+   and CPU, at the default: the end-to-end pass's aligner outputs and the
+   gap strings must be equal.
 4. main path — bench.py's E. coli-scale dataset (4.6 Mb, 50 gaps, 2x101 bp,
    insert 200, 10x) through Pipeline.run_iteration("p", 0) on the card, at
    the production default (default fill_kwargs: all five kernels launched)
@@ -40,6 +53,14 @@ Phases (every one must pass; none is caught):
    and the stage split; then each once more, warm, for the wall ratio.
    ``--profile`` adds one default iteration under torch.profiler and prints
    the device's busy share.
+5. main path, unmapped — the same dataset through a fresh Pipeline's
+   ``run_iteration("u", 0)`` at the default (bench.py's u-trial), the
+   launch counts set to 0 just before and read just after: all five
+   kernels launched, N reduced, filled-base accuracy >= 0.95; wall, fill
+   stats and launches (also by shape) printed; then one
+   ``reference_exact`` u-iteration, held to the same checks, and the
+   number of its gap strings equal to the default's.  ``--profile`` adds
+   the default u-iteration under torch.profiler.
 
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
@@ -87,6 +108,11 @@ PARTIAL_BATCHES = (128, 256)
 ALIGN_GENOME = 4_600_000
 ALIGN_SHAPES = ((32768, 8, "main"), (32768, 32, "scattered"))
 FULL_WIDTH = (512, 512)
+# the unmapped mode's shapes for K1-K4: (reads, gap bucket, width class,
+# K2 and K3 too): the u main path's 128-read bucket at gap 512 at both its
+# width classes, then the full-width buckets of 1,024 and 3,072 reads
+U_SHAPES = ((128, 512, 512, True), (128, 512, 128, True),
+            (1024, 512, 512, True), (3072, 128, 128, False))
 
 
 def log(msg):
@@ -193,6 +219,7 @@ def check_fold(weights, codes, vals, W, what):
     if not (ok and repeat):
         raise AssertionError(f"fold {what} disagrees with its plain version "
                              f"(max abs err {err}, repeat {repeat})")
+    return err
 
 
 def timed(kern, plain, lib):
@@ -233,7 +260,7 @@ def check_bands(b_in, Wp, what, time_forms=("K2", "K form", "gap form")):
                      lambda: band.band_score_onehot(
                          oh, band.hard_K(gap, a, b, ln_et), Wp)),
     }
-    outs = {}
+    outs, times = {}, {}
     for form, (atol, kern, plain, lib) in forms.items():
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
@@ -244,6 +271,7 @@ def check_bands(b_in, Wp, what, time_forms=("K2", "K form", "gap form")):
                f"{repeat}")
         if form in time_forms:
             ms, plain_ms, lib_ms = timed(kern, plain, lib)
+            times[form] = (err, ms, plain_ms, lib_ms)
             msg += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                     f"library {lib_ms:.3f} ms")
         log(msg)
@@ -258,6 +286,7 @@ def check_bands(b_in, Wp, what, time_forms=("K2", "K form", "gap form")):
     if not same:
         raise AssertionError(f"K3 {what}: the gap-string form differs from "
                              f"the K form")
+    return times
 
 
 def check_align(g):
@@ -497,6 +526,130 @@ def phase_kernels():
     return rows
 
 
+def u_batch(n_reads: int, gb: int, L: int = 101) -> int:
+    """The instance batch of an unmapped bucket: fill_gaps' memory cap on
+    the card's instance batch of 768."""
+    Wp = L + gb
+    return max(4, min(768, int(1.5e9) // (n_reads * (5 * L + 4 * Wp) * 8)))
+
+
+def u_row(name, src, repl, key, shape, err, times, n_b, n_o):
+    ms, plain_ms, library_ms = times
+    bound_ms, bound_by = bound(n_b, n_o)
+    log(f"{name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library {library_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({n_b / 1e6:.1f} MB, {n_o / 1e9:.3f} G operations)")
+    return dict(name=name, route="cuda", source=src, replaces=repl,
+                shape=shape, launches=0, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, key=key)
+
+
+def phase_kernels_unmapped():
+    """K1-K4 at the unmapped mode's shapes: every read at every position of
+    the window, each at the instance batch that fill_gaps' memory cap gives
+    its bucket.  K1 (m = 6) and K4 at every U_SHAPES entry, K4 with the
+    hard counts' weights (one 1 per accepted read); K2 and both K3 forms,
+    with the reverse strand's factors, at the entries marked for them.
+    Checked as in phase 2 and timed beside the plain versions, library
+    chains and bounds."""
+    g = torch.Generator(device=DEV).manual_seed(1)
+    L = 101
+    rows = []
+    for n, gb, width, bands in U_SHAPES:
+        ib = u_batch(n, gb)
+        Wp = L + width
+        W = Wp + L
+        shape = f"unmapped {ib} x {n} reads x Wp {Wp}"
+        lw, codes, vals = cascade_inputs(g, ib, n, L, Wp)
+        err = check_cascade(lw, codes, vals, W, 6, shape + ", m = 6")
+        nval = (vals != 0).sum(-1)
+        ops = 0
+        for k in range(6):
+            nz = (band.level_weight(lw, k, SHIFT, CUT) != 0).sum(-1)
+            ops += 2 * int((nz * nval).sum()) + int(nz.sum())
+        ohT = band.oh_flat_c(codes, vals).transpose(1, 2).contiguous()
+
+        def cascade_library():
+            outs = []
+            for g0 in (0, 3):
+                wk = torch.cat([band.level_weight(lw, k, SHIFT, CUT)
+                                for k in range(g0, g0 + 3)], dim=2)
+                cwT = torch.bmm(ohT, wk)
+                outs += [band.fold_T(cwT[:, :, i * Wp : (i + 1) * Wp], L, W)
+                         for i in range(3)]
+            return torch.stack(outs, dim=1)
+
+        times = timed(
+            lambda: band.cascade_counts(lw, codes, vals, W, 6, SHIFT, CUT),
+            lambda: band.cascade_counts_plain(lw, codes, vals, W, 6, SHIFT,
+                                              CUT), cascade_library)
+        rows.append(u_row("cascade", "figbird_tpu_torch/csrc/cascade.cu",
+                          "figbird_tpu/ops/band.py:242", (n, Wp), shape, err,
+                          times,
+                          nbytes(lw, codes, vals) + ib * 6 * W * 5 * 4, ops))
+        del lw, cascade_library
+        torch.cuda.empty_cache()
+        # K4: the hard counts, one weight 1 at each accepted read's argmax
+        acc = torch.rand(ib, n, generator=g, device=DEV) < 0.8
+        at = torch.randint(0, Wp, (ib, n, 1), generator=g, device=DEV)
+        weights = (acc[..., None] & (torch.arange(Wp, device=DEV) == at)
+                   ).to(torch.float32)
+        err = check_fold(weights, codes, vals, W, shape + ", hard counts")
+        times = timed(lambda: band.fold_counts(weights, codes, vals, W),
+                      lambda: band.fold_counts_plain(weights, codes, vals, W),
+                      lambda: band.fold_T(torch.bmm(ohT, weights), L, W))
+        ops = 2 * int(((weights != 0).sum(-1) * nval).sum())
+        rows.append(u_row("fold", "figbird_tpu_torch/csrc/fold.cu",
+                          "figbird_tpu/ops/band.py:320", (n, Wp), shape, err,
+                          times,
+                          nbytes(weights, codes, vals) + ib * W * 5 * 4, ops))
+        del weights, codes, vals, ohT
+        torch.cuda.empty_cache()
+        if not bands:
+            continue
+        # K2 and K3 with the reverse strand's factors
+        bshape = shape + ", reverse strand"
+        codes, valid, probs, eprobs, e_pos, gap, a, b, ln_et = band_inputs(
+            g, ib, n, L, Wp)
+        b_in = (codes, valid, probs, eprobs, e_pos.flip(0), gap, a.flip(0),
+                b.flip(0), ln_et)
+        times = check_bands(b_in, Wp, bshape, ("K2", "gap form"))
+        n_cells = int((valid & (codes < 5)).sum()) * Wp
+        R = gap.shape[1]
+        out_f32 = ib * n * Wp * 4
+        rows.append(u_row("band_soft", "figbird_tpu_torch/csrc/band_soft.cu",
+                          "figbird_tpu/ops/band.py:144", (n, Wp), bshape,
+                          times["K2"][0], times["K2"][1:],
+                          nbytes(codes, valid, probs, eprobs, e_pos)
+                          + out_f32, n_cells + 4 * ib * R * L * 5))
+        rows.append(u_row("band_hard", "figbird_tpu_torch/csrc/band_hard.cu",
+                          "figbird_tpu/ops/band.py:63", (n, Wp), bshape,
+                          times["gap form"][0], times["gap form"][1:],
+                          nbytes(codes, valid, gap, a, b, ln_et) + out_f32,
+                          n_cells + ib * R * L * 5))
+        del b_in, codes, valid, probs, eprobs, gap
+        torch.cuda.empty_cache()
+    return rows
+
+
+def u_rows_with_launches(u_rows, by_shape):
+    """The kernels line's unmapped rows: each row at a (reads, positions)
+    shape the u-iteration launched its kernel at carries those launches;
+    a row at a shape it did not launch (the full-width buckets above 128
+    reads, which bench.py's dataset never fills) goes under the key
+    ``not_on_main_path`` of its kernel's first row that did."""
+    top, rest = [], []
+    for r in u_rows:
+        r["launches"] = by_shape.get((r["name"],) + r.pop("key"), 0)
+        (top if r["launches"] else rest).append(r)
+    for r in rest:
+        host = next((t for t in top if t["name"] == r["name"]), None)
+        assert host is not None, f"{r['name']}: no u row on the main path"
+        host.setdefault("not_on_main_path", []).append(r)
+    return top
+
+
 # ---------------------------------------------------------------- phase 3
 def _cfg(insert, read_len):
     return config.FigbirdConfig(
@@ -534,6 +687,30 @@ def phase_parity():
         n_eq = sum(np.array_equal(x, y) for x, y in zip(s_gpu, s_cpu))
         log(f"parity {what}: aligner outputs equal; gap strings equal "
             f"{n_eq}/{len(s_gpu)}")
+    parity_unmapped(sim, cfg)
+
+
+def parity_unmapped(sim, cfg):
+    """The u-iteration on the card and on the CPU at the default: the
+    end-to-end pass's aligner outputs and the gap strings must be equal."""
+    pipes = {}
+    for dev in ("cuda", "cpu"):
+        p = Pipeline(cfg, sim.draft, [(sim.reads1, sim.reads2)], device=dev)
+        t0 = time.time()
+        st = p.run_iteration("u", 0)
+        log(f"parity u default {dev}: {time.time() - t0:.1f}s N "
+            f"{st.n_before} -> {st.n_after}")
+        pipes[dev] = p
+    for a_gpu, a_cpu in zip(pipes["cuda"].last_alignments_e2e,
+                            pipes["cpu"].last_alignments_e2e):
+        for k in ALIGN_KEYS:
+            np.testing.assert_array_equal(a_gpu[k], a_cpu[k], err_msg=k)
+    s_gpu = pipes["cuda"].result.gap_history[0][1]
+    s_cpu = pipes["cpu"].result.gap_history[0][1]
+    n_eq = sum(np.array_equal(x, y) for x, y in zip(s_gpu, s_cpu))
+    log(f"parity u default: end-to-end aligner outputs equal; gap strings "
+        f"equal {n_eq}/{len(s_gpu)}")
+    assert n_eq == len(s_gpu) == len(s_cpu), "u gap strings differ"
 
 
 # ---------------------------------------------------------------- phase 4
@@ -550,17 +727,17 @@ def filled_accuracy(sim, gap_history):
     return correct / max(filled, 1), filled, total
 
 
-def run_main(sim, what, fill_kwargs, expect):
-    """One p-iteration at full scale with the launch counts set to 0 just
-    before and read just after; the kernels in ``expect`` must have been
-    launched."""
+def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95):
+    """One iteration (``mode``) at full scale with the launch counts set to
+    0 just before and read just after; the kernels in ``expect`` must have
+    been launched."""
     n_reads = 2 * len(sim.reads1)
     pipe = Pipeline(_cfg(200, 101), sim.draft, [(sim.reads1, sim.reads2)],
                     fill_kwargs=fill_kwargs, device=DEV)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.time()
-    st = pipe.run_iteration("p", 0)
+    st = pipe.run_iteration(mode, 0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
@@ -575,11 +752,12 @@ def run_main(sim, what, fill_kwargs, expect):
     missing = [k for k in expect if launches[k] == 0]
     assert not missing, f"kernels not launched on the {what} path: {missing}"
     assert st.n_after < st.n_before, "N not reduced"
-    assert acc >= 0.95, f"filled-base accuracy {acc:.4f} < 0.95"
+    if min_acc is not None:
+        assert acc >= min_acc, f"filled-base accuracy {acc:.4f} < {min_acc}"
     return launches, wall, pipe.result.gap_history[0][1]
 
 
-def busy_share(sim, wall_plain):
+def busy_share(sim, wall_plain, mode="p"):
     """One default iteration under torch.profiler: the union of the device
     activity's intervals, over the iteration's wall with the profiler on
     and over ``wall_plain``, the same iteration's wall without it."""
@@ -591,7 +769,7 @@ def busy_share(sim, wall_plain):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pipe.run_iteration("p", 0)
+        pipe.run_iteration(mode, 0)
         torch.cuda.synchronize()
         wall = time.time() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -607,8 +785,9 @@ def busy_share(sim, wall_plain):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    log(f"profile default: wall {wall:.3f}s with the profiler on, device "
-        f"busy {busy / 1e3:.1f} ms over {len(spans)} device events, busy "
+    log(f"profile default {mode}: wall {wall:.3f}s with the profiler on, "
+        f"device busy {busy / 1e3:.1f} ms over {len(spans)} device events, "
+        f"busy "
         f"share {busy / 1e6 / wall:.3f} of that wall, "
         f"{busy / 1e6 / wall_plain:.3f} of the warm wall without the "
         f"profiler ({wall_plain:.3f}s)")
@@ -618,19 +797,25 @@ def busy_share(sim, wall_plain):
             "align_score::kernel")
     for i, (name, (t, n)) in enumerate(ranked):
         if i < 8 or any(k in name for k in ours):
-            log(f"profile default:   {t / 1e3:8.1f} ms {n:6d} x "
+            log(f"profile default {mode}:   {t / 1e3:8.1f} ms {n:6d} x "
                 f"{name[:90]}")
 
 
-def phase_main(profile_run: bool):
+def bench_sim(genome_len=4_600_000):
+    """bench.py's dataset (scale 1.0): 4.6 Mb, 50 gaps of 10-120 bp, 2x101 bp
+    reads, insert 200 +- 20, 10x."""
     t0 = time.time()
     sim = simulate.simulate(simulate.SimConfig(
-        genome_len=4_600_000, n_contigs=4, n_gaps=50, gap_len_range=(10, 120),
-        read_len=101, insert_mean=200, insert_sd=20, coverage=10.0,
-        error_rate=0.005, seed=1))
+        genome_len=genome_len, n_contigs=4, n_gaps=50,
+        gap_len_range=(10, 120), read_len=101, insert_mean=200, insert_sd=20,
+        coverage=10.0, error_rate=0.005, seed=1))
     log(f"main path dataset: {sim.truth.total_length()} bp, "
         f"{2 * len(sim.reads1)} reads, {len(sim.draft.find_gaps())} gaps "
         f"(simulated in {time.time() - t0:.1f}s)")
+    return sim
+
+
+def phase_main(sim, profile_run: bool):
     all5 = tuple(ops.LAUNCHES)
     four = tuple(k for k in all5 if k != "cascade")
     launches, _, s_def = run_main(sim, "default", {}, all5)
@@ -650,14 +835,38 @@ def phase_main(profile_run: bool):
     return launches
 
 
+def phase_main_unmapped(sim, profile_run: bool):
+    """bench.py's u-trial: a fresh Pipeline's u-iteration at the default,
+    all five kernels launched, N reduced; then one reference_exact
+    u-iteration and its gap strings against the default's."""
+    all5 = tuple(ops.LAUNCHES)
+    _, wall, s_def = run_main(sim, "u default", {}, all5, "u")
+    by_shape = dict(ops.LAUNCHES_BY_SHAPE)
+    log("main path u default: launches by (kernel, reads, positions) "
+        + str(dict(sorted(by_shape.items()))))
+    _, _, s_x = run_main(sim, "u reference_exact", {"reference_exact": True},
+                         all5, "u")
+    n_eq = sum(np.array_equal(a, b) for a, b in zip(s_def, s_x))
+    log(f"main path u: default vs reference_exact gap strings equal "
+        f"{n_eq}/{len(s_def)}")
+    if profile_run:
+        busy_share(sim, wall, "u")
+    return by_shape
+
+
 def main():
     t_all = time.time()
     card = phase_device()
     rows = phase_kernels()
+    u_rows = phase_kernels_unmapped()
     phase_parity()
-    launches = phase_main("--profile" in sys.argv[1:])
+    profile_run = "--profile" in sys.argv[1:]
+    sim = bench_sim()
+    launches = phase_main(sim, profile_run)
+    u_by_shape = phase_main_unmapped(sim, profile_run)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows += u_rows_with_launches(u_rows, u_by_shape)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

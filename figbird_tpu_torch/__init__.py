@@ -1,10 +1,11 @@
 """figbird_tpu_torch — the PyTorch/CUDA port of figbird_tpu.
 
 The JAX package ``figbird_tpu`` is the reference; this package runs the same
-partial-mode iteration (align -> pair -> model -> triage -> banded EM fill ->
-splice) with PyTorch, at the production default (the exact soft-count
-cascade), and its five Pallas kernels rewritten as CUDA C++ kernels for
-Hopper (``csrc/``, built with ``nvcc`` at first use).  It imports ``torch``
+iterations with PyTorch — partial mode (align -> pair -> model -> triage ->
+banded EM fill -> splice) and unmapped mode (plus an end-to-end alignment
+pass, a model relearn and the full-window unmapped EM) — at the production
+default (the exact soft-count cascade), and its five Pallas kernels
+rewritten as CUDA C++ kernels for Hopper (``csrc/``, built with ``nvcc`` at first use).  It imports ``torch``
 and never ``jax`` nor anything of ``figbird_tpu``: the numpy host modules it
 needs (``dtypes``, ``genome``, ``config``, ``simulate``, ``io``,
 ``model.error_model``, ``align.index``, ``align.pairing``, ``triage.assign``,

@@ -33,16 +33,15 @@ class BandedParams:
 def banded_scores_device(flat: torch.Tensor, starts: torch.Tensor,
                          reads: torch.Tensor, lengths: torch.Tensor,
                          params: BandedParams) -> dict:
-    """Banded local affine-gap DP scores for a batch.
+    """Banded affine-gap DP scores for a batch: local, or glocal with
+    ``params.end_to_end`` (the whole read aligns: no zero floor, the score
+    read where the full read ends; the genome-side start stays free).
 
     flat: padded genome (1-D int8); starts (B,) window starts of each read's
     gapless candidate (the band allows +-band drift).  Returns dict(score,
     end_i, end_k) of (B,) int32 — the best-scoring cell.
     """
-    if params.end_to_end:
-        raise NotImplementedError(
-            "end-to-end banded tier (unmapped mode) is not ported yet; "
-            "see ROADMAP.md, queue 1 item 8")
+    e2e = params.end_to_end
     B, L = reads.shape
     bd = params.band
     K = 2 * bd + 1
@@ -56,7 +55,7 @@ def banded_scores_device(flat: torch.Tensor, starts: torch.Tensor,
 
     H = torch.zeros((B, K), dtype=torch.int32, device=dev)
     F = torch.full((B, K), NEG, dtype=torch.int32, device=dev)
-    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    best = torch.full((B,), NEG if e2e else 0, dtype=torch.int32, device=dev)
     bi = torch.zeros(B, dtype=torch.int32, device=dev)
     bk = torch.zeros(B, dtype=torch.int32, device=dev)
     for i in range(L):
@@ -70,16 +69,22 @@ def banded_scores_device(flat: torch.Tensor, starts: torch.Tensor,
         F_up = torch.cat([F[:, 1:], neg_col], dim=1)
         F = torch.maximum(H_up + op, F_up + ex)
         F = torch.where(valid_r, F, NEG)
-        H_noE = torch.clamp_min(torch.maximum(diag, F), 0)
+        H_noE = torch.maximum(diag, F)
+        if not e2e:
+            H_noE = torch.clamp_min(H_noE, 0)  # local: restart anywhere
         g = H_noE - ex * kk
         m = torch.cummax(g, dim=1).values
         m_shift = torch.cat([neg_col, m[:, :-1]], dim=1)
         E = m_shift + op + ex * (kk - 1)
-        Hn = torch.clamp_min(torch.maximum(H_noE, E), 0)
+        Hn = torch.maximum(H_noE, E)
+        if not e2e:
+            Hn = torch.clamp_min(Hn, 0)
         H = torch.where(valid_r, Hn, H).to(torch.int32)
         row_best = H.max(dim=1).values
         row_k = H.argmax(dim=1).to(torch.int32)
         upd = row_best > best
+        if e2e:  # score the read only where the full read ends
+            upd = upd & (i == lengths - 1)
         best = torch.where(upd, row_best, best)
         bi = torch.where(upd, i, bi).to(torch.int32)
         bk = torch.where(upd, row_k, bk)

@@ -3,8 +3,11 @@
 1. **Seed**: S k-mers per read at evenly spaced offsets, looked up in the
    direct-addressed prefix buckets of the sorted k-mer table, up to H hits
    each, for the read and its reverse complement.
-2. **Extend**: every candidate window gets a gapless local score — the K5
-   kernel (``ops.align_score``), bowtie2 ``--local`` soft-clip semantics.
+2. **Extend**: every candidate window gets a gapless local score and a
+   full-read (end-to-end) score — the K5 kernel (``ops.align_score``);
+   bowtie2 ``--local`` soft-clip semantics, or with ``end_to_end`` (the
+   unmapped pass's preset, ``e2e_params``) default bowtie2 semantics: no
+   clips, a minimum score linear in the read length.
 3. **Select**: best candidate per strand (first max), best strand, runner-up
    at a distinct position for uniqueness.
 
@@ -43,10 +46,17 @@ class AlignParams:
     mismatch: int = -6       # bowtie2 --mp max default
     min_score_const: float = 20.0   # bowtie2 --score-min G,20,8
     min_score_log: float = 8.0
+    # end-to-end mode (the unmapped pass: default bowtie2, no --local): the
+    # full read scores, min score 1.2 * L - 0.8 on this +2/-6 scale
     end_to_end: bool = False
     e2e_min_per_base: float = 1.2
     e2e_min_const: float = -0.8
     want_mism: bool = True
+
+
+def e2e_params(p: AlignParams) -> AlignParams:
+    """The unmapped-pass preset: same seeding, end-to-end scoring."""
+    return replace(p, end_to_end=True)
 
 
 def shift_left_batch(x: torch.Tensor, off: torch.Tensor, fill) -> torch.Tensor:
@@ -167,7 +177,8 @@ def _align_one_strand(flat, flatlen: int, tables, reads, lengths, k: int,
     cand = cand.reshape(B, C)
     hmask = hmask.reshape(B, C)
     sc = score_candidates(flat, reads, cand, p.match, p.mismatch, GAP_CODE)
-    sel = torch.where(hmask, sc["local"], NEG)
+    # end-to-end: no free clipping, candidates rank by the full-read score
+    sel = torch.where(hmask, sc["e2e" if p.end_to_end else "local"], NEG)
     bi = sel.argmax(dim=-1)
 
     def take(x):
@@ -251,10 +262,6 @@ def align_batch(flat, flatlen: int, tables, reads, lengths, k: int,
                 params: AlignParams, prefix_shift: int) -> dict:
     """Align a batch against both strands; returns the packed per-read best
     alignment (and the mismatch mask when ``params.want_mism``)."""
-    if params.end_to_end:
-        raise NotImplementedError(
-            "end-to-end alignment (unmapped mode) is not ported yet; see "
-            "ROADMAP.md, queue 1 item 8")
     fwd = _align_one_strand(flat, flatlen, tables, reads, lengths, k, params,
                             prefix_shift)
     rc_reads = revcomp_batch(reads, lengths)
@@ -267,17 +274,30 @@ def align_batch(flat, flatlen: int, tables, reads, lengths, k: int,
 
     out = {key: pick(key) for key in ("score", "n_mis", "pos", "cand_i")}
     out["hit_overflow"] = fwd["hit_overflow"] | rev["hit_overflow"]
-    if params.want_mism:
+    if params.want_mism or params.end_to_end:
         reads_o = torch.where(use_rev[:, None], rc_reads, reads)
         win = extract_span(flat, out["pos"], reads.shape[1])
         rv = reads_o != GAP_CODE
-        m = (win == reads_o) & rv & (win != GAP_CODE)
-        out["mism"] = rv & ~m
+        mism = rv & ~((win == reads_o) & rv & (win != GAP_CODE))
+        if params.want_mism:
+            out["mism"] = mism
     out["strand"] = use_rev.to(torch.int8)
     start, end = pick("start"), pick("end")
     out["second"] = torch.maximum(
         torch.where(use_rev, rev["second"], fwd["second"]),
         torch.where(use_rev, fwd["score"], rev["score"]))
+    if params.end_to_end:
+        # linear min score, full-read span, no clips, full-read mismatches
+        min_score = (params.e2e_min_const
+                     + params.e2e_min_per_base * lengths.to(torch.float32))
+        out["n_mis"] = mism.sum(dim=1)
+        out["aligned"] = out["score"].to(torch.float32) >= min_score
+        out["unique"] = out["aligned"] & (out["score"] > out["second"])
+        out["alen"] = lengths
+        out["clip_start"] = torch.zeros_like(lengths)
+        out["clip_end"] = torch.zeros_like(lengths)
+        out["packed"] = _pack_out(out, reads.shape[1])
+        return out
     min_score = (params.min_score_const + params.min_score_log
                  * torch.log(torch.clamp_min(lengths, 2).to(torch.float32)))
     out["aligned"] = out["score"].to(torch.float32) >= min_score
@@ -310,6 +330,9 @@ class Aligner:
         self.indel_min_clip = indel_min_clip
         self.indel_win_margin = indel_win_margin
         self.banded_params = banded_params or BandedParams()
+        if params.end_to_end and not self.banded_params.end_to_end:
+            # the indel tier re-scores glocally in end-to-end mode
+            self.banded_params = replace(self.banded_params, end_to_end=True)
         self.batch_size = batch_size
         self.two_tier = two_tier
         if cheap_params is None:
@@ -519,9 +542,14 @@ class Aligner:
             return np.zeros(0, np.int64), None, None
         out["indel"] = np.zeros(len(lengths), bool)
         out["indel_detail"] = {}
-        cl = out["clip_start"] + out["clip_end"]
-        cand = (out["aligned"] & (cl >= self.indel_min_clip)) | (
-            ~out["aligned"] & (out["score"] > 0))
+        if self.params.end_to_end:
+            # glocal re-score: any unaligned read may hide an indel (its
+            # gapless end-to-end score collapses after the event)
+            cand = ~out["aligned"]
+        else:
+            cl = out["clip_start"] + out["clip_end"]
+            cand = (out["aligned"] & (cl >= self.indel_min_clip)) | (
+                ~out["aligned"] & (out["score"] > 0))
         rows = np.flatnonzero(cand)
         if not rows.size:
             return rows, None, None
@@ -561,8 +589,12 @@ class Aligner:
         bp = self.banded_params
         p = self.params
         L = seq.shape[1]
-        min_score = (p.min_score_const + p.min_score_log * np.log(
-            np.maximum(lengths[rows], 2).astype(np.float64)))
+        if p.end_to_end:
+            min_score = (p.e2e_min_const + p.e2e_min_per_base
+                         * lengths[rows].astype(np.float64))
+        else:
+            min_score = (p.min_score_const + p.min_score_log * np.log(
+                np.maximum(lengths[rows], 2).astype(np.float64)))
         # margin: a banded "win" below the margin over the gapless score is
         # noise (a spurious 1bp gap recovering a clipped mismatch)
         win_mask = (scores > out["score"][rows] + self.indel_win_margin) & \

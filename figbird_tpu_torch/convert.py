@@ -16,12 +16,15 @@ import numpy as np
 import torch
 
 from . import config as _config
+from .align.banded import BandedParams
+from .align.core import AlignParams
 from .align.index import KmerIndex
 from .fill.em import FillConfig
-from .genome import Genome
+from .genome import GapInfo, Genome
 from .io.fastq import ReadBatch
 from .model.error_model import ErrorModel, ModelStats
 from .simulate import SimData
+from .triage.assign import GapBundle
 
 
 def _as(cls, obj, **over):
@@ -52,6 +55,32 @@ def kmer_tables(tables: dict, device="cpu") -> dict:
     return {k: torch.as_tensor(np.array(tables[k + "2d"]).reshape(-1),
                                device=device)
             for k in ("starts", "codes", "pos")}
+
+
+def align_params(p) -> AlignParams:
+    """The reference's ``AlignParams`` (the end-to-end preset included)."""
+    return _as(AlignParams, p)
+
+
+def banded_params(p) -> BandedParams:
+    return _as(BandedParams, p)
+
+
+def gap_info(g) -> GapInfo:
+    return _as(GapInfo, g)
+
+
+def gap_bundle(b) -> GapBundle:
+    """A per-gap read bundle, partial and unmapped reads (``u_seq``,
+    ``u_pos``, ``u_rev``) alike; the read arrays are copied."""
+    out = GapBundle(gap_info(b.gap))
+    for f in dataclasses.fields(GapBundle):
+        if f.name == "gap" or f.name.startswith("_"):
+            continue
+        v = getattr(b, f.name)
+        setattr(out, f.name, [x.copy() if isinstance(x, np.ndarray) else x
+                              for x in v] if isinstance(v, list) else v)
+    return out
 
 
 def genome(g) -> Genome:

@@ -1,17 +1,18 @@
-"""Host orchestration of the partial-mode gap-fill EM
-(``figbird_tpu/fill/driver.py``).
+"""Host orchestration of the gap-fill EM (``figbird_tpu/fill/driver.py``).
 
 1. host pre-analysis per gap (flanks, repeats, negative-gap merge, findFrac
    length ranges) — the numpy helpers are copied from the reference, whose
    module imports JAX;
-2. a batched device scan over candidate gap lengths whose sequential
-   early-exit heuristics are replayed on the host (fillGap 6298-6482);
-3. the winner re-run, a finalize pass against the best string, and the host
+2. in unmapped mode, the read-count probe of small gaps (checkGapReads);
+3. a batched device scan over candidate gap lengths whose sequential
+   early-exit heuristics are replayed on the host (fillGap 6298-6482); the
+   unmapped EM runs staged (8 iterations, then the full cap, then the
+   reference's 200 for lanes still unconverged);
+4. the winner re-run, a finalize pass against the best string, and the host
    guard battery.
 
 The soft counts run at the production default (the exact 6-level cascade,
-kernel K1) or at one of the precision tiers of ``fill_gaps``.  Unmapped mode
-is a later slice of the port and raises ``NotImplementedError``.
+kernel K1) or at one of the precision tiers of ``fill_gaps``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import logging
 import time as _time
 from dataclasses import dataclass, field, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -26,7 +28,7 @@ import torch
 from ..dtypes import GAP_CODE, N
 from ..genome import GapInfo
 from ..ops import entry_device
-from .em import (_CASCADE_GROUP, _NEXT_SLICE, SCAN_COLS, FillConfig,
+from .em import (_CASCADE_GROUP, SCAN_COLS, FillConfig,
                  fill_batch_full_packed, fill_batch_scan,
                  finalize_batch_packed, finalize_packed_layout,
                  full_packed_layout, partial_stack_full)
@@ -34,10 +36,15 @@ from .em import (_CASCADE_GROUP, _NEXT_SLICE, SCAN_COLS, FillConfig,
 logger = logging.getLogger("figbird_tpu_torch.fill")
 
 SIDE_LIMIT = 30
+GAPTHRESH = 400          # FillGaps.cpp:22 (mid_limitu)
 PARTIAL_SAME = 4         # fillGap 6258
+JUMP_SAME = 50
 PARTIAL_THRESHOLD = 2    # setParameters
 GAP_BUCKETS = (128, 512, 1024, 2048, 4096, 8192)
 COUNT_BUCKETS = (128, 1024, 3072)
+STAGE_ITERS = 8          # first stage of the unmapped scan
+REF_EM_ITERS = 200       # the reference's num_itr (Figbird.cpp:6225)
+EM_ITERS_UNMAPPED = 48   # the unmapped EM's default iteration count
 
 
 @dataclass
@@ -54,6 +61,10 @@ class GapPlan:
     large_gap: bool = False
     perfect_flag: int = 0    # checkMIM equivalent
     perfect_len: int = 0
+    # unmapped small-gap probe failed (checkGapReads): the reference then
+    # finalizes with saved_reads all zero, so nothing is accepted and the
+    # gap stays N
+    less_read: bool = False
 
 
 @dataclass
@@ -185,19 +196,27 @@ def _find_perfect_mim(plan: GapPlan, max_orig: int = 20,
     return 0, 0
 
 
-def _find_frac(orig: int, partial_len: int) -> tuple[float, float]:
-    """findFrac (6879-6906), partial mode: length-range fractions."""
+def _find_frac(orig: int, partial_mode: bool,
+               partial_len: int) -> tuple[float, float, bool]:
+    """findFrac (6879-6906): length-range fractions + large-gap flag."""
     factor = 3 * partial_len
     mid_limitp = 2 * partial_len
-    if orig <= mid_limitp // 2:
-        return 1e-5, factor / max(orig, 1)
-    if orig <= mid_limitp:
-        return 1e-5, 5.0
-    return 1.0, 1.0
+    if partial_mode:
+        if orig <= mid_limitp // 2:
+            return 1e-5, factor / max(orig, 1), False
+        if orig <= mid_limitp:
+            return 1e-5, 5.0, False
+        return 1.0, 1.0, False
+    if orig <= GAPTHRESH // 3:
+        return 0.3, factor / max(orig, 1), False
+    if orig <= GAPTHRESH:
+        return 0.5, 2.5, False
+    return 1.0, 1.0, True
 
 
-def plan_gaps(genome, gaps, bundles, partial_len: int, neg_overlap: int,
-              max_scan_lengths: int = 96) -> list[GapPlan]:
+def plan_gaps(genome, gaps, bundles, partial_mode: bool, partial_len: int,
+              neg_overlap: int, max_scan_lengths: int = 160
+              ) -> list[GapPlan]:
     plans = []
     for g, b in zip(gaps, bundles):
         contig = genome.contigs[g.contig]
@@ -212,7 +231,7 @@ def plan_gaps(genome, gaps, bundles, partial_len: int, neg_overlap: int,
             plans.append(plan)
             continue
         two, one = _find_repeats(plan)
-        if two or (one and g.length > 6 * partial_len):
+        if partial_mode and (two or (one and g.length > 6 * partial_len)):
             plan.skip = True
             plans.append(plan)
             continue
@@ -221,7 +240,7 @@ def plan_gaps(genome, gaps, bundles, partial_len: int, neg_overlap: int,
             if plan.neg_merge > 0:
                 plans.append(plan)
                 continue
-        if b.n_partial:
+        if partial_mode and b.n_partial:
             if getattr(b, "mim_flag", 0):
                 # native MIM from the banded aligner tier
                 plan.perfect_flag, plan.perfect_len = b.mim_flag, b.mim_len
@@ -232,7 +251,8 @@ def plan_gaps(genome, gaps, bundles, partial_len: int, neg_overlap: int,
             plan.lengths = [g.length]
             plans.append(plan)
             continue
-        f1, f2 = _find_frac(g.length, partial_len)
+        f1, f2, plan.large_gap = _find_frac(g.length, partial_mode,
+                                            partial_len)
         lengths = list(range(int(g.length * f1), int(g.length * f2) + 1))
         if g.length not in lengths:
             lengths.append(g.length)
@@ -284,14 +304,20 @@ def _pad_reads(seqs, L, n_pad, fill=GAP_CODE):
     return out, lens
 
 
-def _replay_scan(lengths, lik, valid):
-    """Replay fillGap's sequential plateau/early-exit logic, partial mode.
+def _replay_scan(lengths, lik, valid, orig, partial_mode, extras=None):
+    """Replay fillGap's sequential plateau/early-exit logic (6398-6478).
     Returns (best_index, evaluated_count, used_read_varied, exited,
-    second_best_index)."""
+    second_best_index); ``exited`` is True when a break fired.  The unmapped
+    mode's ``extras`` (per-candidate ``edge`` and ``discont`` flags) drive
+    its further exits."""
+    same_thresh = PARTIAL_SAME if partial_mode else JUMP_SAME
     best_i, second, second_i = 0, -np.inf, -1
     best_lik = -np.inf
     same = 0
+    sec_same = sec_same2 = stuck = 0
     prev_lik = 0.0
+    prev_best = -1
+    prev_u = -1
     n_eval = 0
     exited = False
     for j, (le, lk, vc) in enumerate(zip(lengths, lik, valid)):
@@ -301,14 +327,36 @@ def _replay_scan(lengths, lik, valid):
             second_i = best_i if np.isfinite(best_lik) else -1
             best_lik = lk
             best_i = j
+            prev_u = vc
         elif lk > second:
             second = lk
             second_i = j
         same = same + 1 if abs(prev_lik - lk) <= 0.9 else 0
         prev_lik = lk
-        if same == PARTIAL_SAME:
+        if same == same_thresh:
             exited = True
             break
+        if not partial_mode and extras is not None:
+            if best_i == prev_best and abs(vc - prev_u) <= 2:
+                sec_same += 1
+            else:
+                prev_best = best_i
+                sec_same = 0
+            if sec_same >= 2 * same_thresh:
+                exited = True
+                break
+            if orig <= 30:
+                sec_same2 = 0 if extras["edge"][j] else sec_same2 + 1
+                if sec_same2 >= int(1.5 * same_thresh):
+                    exited = True
+                    break
+            if extras["discont"][j] and vc < 5:
+                stuck += 1
+            else:
+                stuck = 0
+            if stuck > 3 * same_thresh:
+                exited = True
+                break
     used = np.asarray(valid[:n_eval])
     varied = bool(len(used) > 1 and np.any(used != used[0]))
     return best_i, n_eval, varied, exited, second_i
@@ -321,6 +369,85 @@ def _host_consensus(counts: np.ndarray, gap_len: int) -> np.ndarray:
     c = counts[:gap_len]
     mx = c.max(axis=1)
     return np.where(mx > 0, c.argmax(axis=1), N).astype(np.int8)
+
+
+def _find_region(cons: np.ndarray) -> list[tuple[int, int]]:
+    """findRegion (4594-4621): maximal N runs as (start, end) inclusive."""
+    isn = cons == N
+    if not isn.any():
+        return []
+    d = np.diff(isn.astype(np.int8))
+    starts = list(np.flatnonzero(d == 1) + 1)
+    ends = list(np.flatnonzero(d == -1))
+    if isn[0]:
+        starts = [0] + starts
+    if isn[-1]:
+        ends = ends + [len(cons) - 1]
+    return list(zip(starts, ends))
+
+
+def _find_discontinuous(pos: np.ndarray, lens: np.ndarray, accept: np.ndarray
+                        ) -> list[int]:
+    """findDiscontinous (4623-4666): adjacent overlap in [0, 2] -> N
+    position."""
+    order = np.argsort(np.where(accept, pos, -200))
+    sp = np.where(accept, pos, -200)[order]
+    sl = lens[order]
+    out = []
+    for i in range(len(sp) - 1):
+        if sp[i] == -200:
+            continue
+        diff = sp[i] + sl[i] - sp[i + 1]
+        if 0 <= diff <= 2:  # match_count_discont/2
+            out.append(int(sp[i] + sl[i]))
+    return out
+
+
+def _recheck_sequence(cons, pos, lens, accept, orig_gap, region_perct) -> int:
+    """recheck_sequence (4668-4743): N-out discontinuities and erode around
+    unfilled regions.  Mutates ``cons``; returns 1 => full reset."""
+    gl = len(cons)
+    for dp in _find_discontinuous(pos, lens, accept):
+        if 0 <= dp < gl:
+            cons[dp] = N
+    regions = _find_region(cons)
+    flag = len(_find_discontinuous(pos, lens, accept))
+    if orig_gap < 400:
+        red = 1.0
+    elif orig_gap < 1200:
+        red = 1.5
+    else:
+        red = 2.0
+    readchar = 30
+    if len(regions) <= 1:
+        if len(regions) == 1:
+            if region_perct < 0.75 or flag > 0:
+                r0, r1 = regions[0]
+                i = r0 - 1
+                while i >= max(r0 - int(red * readchar), 0):
+                    cons[i] = N
+                    i -= 1
+                j = r1 + 1
+                while j < min(r1 + 1 + int(red * readchar), gl):
+                    cons[j] = N
+                    j += 1
+                if i < 0 and j == gl:
+                    return 1
+    else:
+        start = regions[0][0]
+        end = regions[-1][1]
+        cons[start:end] = N
+        i = start - 1
+        while i > start - 1 - int(red * readchar) and i >= 0:
+            cons[i] = N
+            i -= 1
+        j = end + 1
+        while j < end + 1 + int(red * readchar) and j < gl:
+            cons[j] = N
+            j += 1
+        if i < 0 and j == gl:
+            return 1
+    return 0
 
 
 def _detect_overlap_host(plan: GapPlan, accept, pos, gap_len
@@ -467,6 +594,11 @@ def _build_gap_arrays(genome, plans_sub: list[GapPlan], cfg: FillConfig,
         p_refpos=np.full((G, cfg.P), -1, np.int32),
         p_valid=np.zeros((G, cfg.P), bool),
         p_qerr=np.zeros((G, cfg.P, L), np.float32),
+        ur=np.full((G, cfg.R, L), GAP_CODE, np.int8),
+        u_len=np.zeros((G, cfg.R), np.int32),
+        u_pos=np.zeros((G, cfg.R), np.int32),
+        u_rev=np.zeros((G, cfg.R), np.int8),
+        u_valid=np.zeros((G, cfg.R), bool),
     )
     for i, plan in enumerate(plans_sub):
         g = plan.gap
@@ -482,6 +614,14 @@ def _build_gap_arrays(genome, plans_sub: list[GapPlan], cfg: FillConfig,
         rchars = contig[rs : rs + RW]
         arr["right_win"][i, : len(rchars)] = rchars
         b = plan.bundle
+        if cfg.unmapped_mode and b.n_unmapped:
+            seq, lens = _pad_reads(b.u_seq, L, cfg.R)
+            n = min(b.n_unmapped, cfg.R)
+            arr["ur"][i] = seq
+            arr["u_len"][i] = lens
+            arr["u_pos"][i, :n] = np.asarray(b.u_pos[:n], np.int32)
+            arr["u_rev"][i, :n] = np.asarray(b.u_rev[:n], np.int8)
+            arr["u_valid"][i, :n] = True
         if b.n_partial:
             seq, lens = _pad_reads(b.p_seq, L, cfg.P)
             n = min(b.n_partial, cfg.P)
@@ -504,15 +644,33 @@ def _build_gap_arrays(genome, plans_sub: list[GapPlan], cfg: FillConfig,
     return out
 
 
+def _probe_lengths(orig: int) -> list[int]:
+    """checkGapReads probe grid (Figbird.cpp:6121-6153)."""
+    if orig < 30:
+        step = 10 if orig < 15 else 20
+        return list(range(0, 80, step))
+    return [orig // 2, orig, 2 * orig, 3 * orig]
+
+
 # ---------------------------------------------------------------- main entry
 
 def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
               partial_len: int, neg_overlap: int = 30,
-              read_len: int | None = None, instance_batch: int | None = None,
+              read_len: int | None = None,
+              instance_batch: int | None = None,
               max_scan_lengths: int | None = None, scan_block: int = 64,
+              reference_exact: bool = False,
               exact_soft: bool | str | None = None,
               soft_levels: int | None = None, device=None) -> FillResult:
-    """Fill all gaps for one partial-mode iteration on ``device``.
+    """Fill all gaps for one iteration on ``device``: partial mode
+    (``partial_mode=True``) or unmapped mode.
+
+    ``max_scan_lengths`` (default 96 in partial mode, uncapped in unmapped
+    mode) caps the candidate-length scan by stride sampling.
+    ``reference_exact=True`` turns off every cap that could diverge from the
+    reference's exhaustive behaviour: the scan cap, the overlap-bonus pair
+    cap (``bonus_cap`` = the partial read bucket) and the staged unmapped
+    scan, and runs the unmapped EM to the reference's 200 iterations.
 
     ``exact_soft``: ``None``/``True`` (production default) = the full
     6-level double-range cascade on every dispatch, which reproduces the
@@ -524,12 +682,9 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
     mini-cascade everywhere plus underflow detection, and exact re-runs of
     the flagged instances.  ``False`` = plain f32 only, no detection (a
     precision-attribution trial).  ``soft_levels`` defaults to 3 (1 with
-    ``exact_soft=False``).  Unmapped mode raises ``NotImplementedError``.
-    ``device=None`` is the card (an error where there is none);
-    ``device="cpu"`` asks for the CPU.
+    ``exact_soft=False``).  ``device=None`` is the card (an error where
+    there is none); ``device="cpu"`` asks for the CPU.
     """
-    if not partial_mode:
-        raise NotImplementedError(_NEXT_SLICE)
     if exact_soft is None:
         exact_soft = True
     if exact_soft not in (True, False, "auto", "hybrid"):
@@ -541,7 +696,11 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
         soft_levels = 1 if exact_soft is False else 3
     device = entry_device(device)
     if max_scan_lengths is None:
-        max_scan_lengths = 96
+        max_scan_lengths = 96 if partial_mode else 0
+    em_iters_unmapped = EM_ITERS_UNMAPPED
+    if reference_exact:
+        max_scan_lengths = 0
+        em_iters_unmapped = REF_EM_ITERS
     if instance_batch is None:
         # the reference's TPU batch on the card; small batches on the CPU
         instance_batch = 768 if device.type == "cuda" else 64
@@ -554,8 +713,8 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
              "scan_instances": 0, "buckets": 0}
 
     _t0 = _time.time()
-    plans = plan_gaps(genome, gaps, bundles, partial_len, neg_overlap,
-                      max_scan_lengths)
+    plans = plan_gaps(genome, gaps, bundles, partial_mode, partial_len,
+                      neg_overlap, max_scan_lengths)
     stats["t_plan"] = round(_time.time() - _t0, 3)
     mim = np.asarray([(p.perfect_flag, p.perfect_len) for p in plans],
                      np.int64).reshape(n_gaps, 2)
@@ -578,36 +737,47 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
         max((len(s) for p in (plans[i] for i in active)
              for s in (p.bundle.p_seq + p.bundle.u_seq)), default=100), 50))
 
-    buckets: dict[tuple, list[int]] = {}
-    for gi in active:
+    def bucket_key(gi):
         plan = plans[gi]
         need_g = max(max(plan.lengths, default=plan.gap.length),
-                     plan.gap.length)
-        key = (_quant(need_g, GAP_BUCKETS),
-               _quant(max(plan.bundle.n_partial, 1), COUNT_BUCKETS))
-        buckets.setdefault(key, []).append(gi)
+                     plan.gap.length,
+                     max(_probe_lengths(plan.gap.length))
+                     if (not partial_mode and not plan.large_gap
+                         and plan.gap.length <= GAPTHRESH) else 0)
+        rb = 1 if partial_mode else _quant(max(plan.bundle.n_unmapped, 1),
+                                           COUNT_BUCKETS)
+        return (_quant(need_g, GAP_BUCKETS),
+                _quant(max(plan.bundle.n_partial, 1), COUNT_BUCKETS), rb,
+                plan.large_gap)
+
+    buckets: dict[tuple, list[int]] = {}
+    for gi in active:
+        buckets.setdefault(bucket_key(gi), []).append(gi)
     stats["buckets"] = len(buckets)
-    stats["bucket_shapes"] = {str((gb, pb, 1, False)): len(v)
-                              for (gb, pb), v in buckets.items()}
+    stats["bucket_shapes"] = {str(k): len(v) for k, v in buckets.items()}
     logger.info("fill buckets: %s", stats["bucket_shapes"])
 
     marr = {k: torch.as_tensor(v, device=device)
             for k, v in model_arrays(model, L).items()}
-    for (gb, pb), gids in sorted(buckets.items()):
+    for (gb, pb, rb, large), gids in sorted(buckets.items()):
         cfg = FillConfig(
-            W=L + gb + L, Wp=L + gb, L=L, WL=L, max_gap_len=gb, R=1, P=pb,
-            partial_mode=True, unmapped_mode=False, em_iters=3,
+            W=L + gb + L, Wp=L + gb, L=L, WL=L, max_gap_len=gb, R=rb, P=pb,
+            partial_mode=partial_mode, unmapped_mode=not partial_mode,
+            em_iters=3 if partial_mode else em_iters_unmapped,
             gap_prob_cutoff=float(model.gap_prob_cutoff),
             insert_tmin=int(model.insert_threshold_min),
             insert_tmax=int(model.insert_threshold_max),
-            bonus_cap=24, exact_soft=exact_soft in (True, "hybrid"),
+            bonus_cap=pb if reference_exact else 24,
+            exact_soft=exact_soft in (True, "hybrid"),
             detect_prec=prec_escalate, soft_levels=soft_levels)
         # memory-capped instance batch (the reference's ~1.5 GB cap)
-        per_inst = pb * (5 * cfg.L + (1 + _CASCADE_GROUP) * cfg.Wp) * 8
+        per_inst = max(pb, rb) * (5 * cfg.L + (1 + _CASCADE_GROUP)
+                                  * cfg.Wp) * 8
         ib = max(4, min(instance_batch, int(1.5e9) // max(per_inst, 1)))
         _fill_bucket(genome, plans, gids, cfg, marr, ib, scan_block,
                      out_strings, placements, stats, second_best, device,
-                     prec_escalate, scan_fast)
+                     large, staged_scan=not reference_exact,
+                     prec_escalate=prec_escalate, scan_fast=scan_fast)
     logger.info("fill timers: %s scan_instances=%d",
                 {k: v for k, v in stats.items() if k.startswith("t_")},
                 stats.get("scan_instances", 0))
@@ -631,38 +801,61 @@ def _chunk_sizes(m: int, batch: int) -> list[int]:
 
 def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                  out_strings, placements, stats, second_best, device,
-                 prec_escalate=False, scan_fast=False):
-    """Length scan + winner re-run + finalize + guards for one bucket.
+                 large_flag=False, staged_scan=True, prec_escalate=False,
+                 scan_fast=False):
+    """Probe (unmapped small gaps), length scan, winner re-run, finalize and
+    guards for one bucket.
 
-    ``prec_escalate``: lanes whose fast soft-count pass flagged underflow
-    risk (the packed ``prec`` column) re-run with the exact cascade.
-    ``scan_fast``: the length scan runs ``cfg.soft_levels`` cascade levels;
-    re-runs and finalize run ``cfg`` (exact)."""
+    ``staged_scan``: unmapped instances run an 8-iteration EM first; lanes
+    that bail re-run from scratch at the full cap, and lanes still bailed at
+    the reference's 200 (identical trajectories, so a converged lane's
+    outputs equal a single full-cap pass).  ``prec_escalate``: lanes whose
+    fast soft-count pass flagged underflow risk (the packed ``prec`` column)
+    re-run with the exact cascade.  ``scan_fast``: the length scan runs
+    ``cfg.soft_levels`` cascade levels; re-runs and finalize run ``cfg``.
+    ``large_flag``: the bucket's gaps take the large-gap EM (finalize extras
+    and the region break in every pass)."""
+    partial_mode = cfg.partial_mode
     _t0 = _time.time()
     gap_arrays = _build_gap_arrays(genome, [plans[g] for g in gids], cfg,
                                    device)
     stats["t_build"] = stats.get("t_build", 0) + round(_time.time() - _t0, 3)
     row_of = {gi: r for r, gi in enumerate(gids)}
+    staged = not partial_mode and staged_scan and cfg.em_iters > STAGE_ITERS
+
+    # precision tiers: "full" scans (the mini-cascade under scan_fast),
+    # "x..." re-runs and finalizes at cfg — the scan only selects lengths
+    # and replay scalars, the re-run produces every output string —
+    # "exact..." is the escalation target of prec-flagged lanes; "fast" and
+    # "xfast" are the staged scan's first stage, a "200" suffix its last
+    scan_base = replace(cfg, exact_soft=False, detect_prec=False) \
+        if scan_fast else cfg
+    tiers = {"full": scan_base, "xfull": cfg}
+    if staged:
+        tiers["fast"] = replace(scan_base, em_iters=STAGE_ITERS)
+        tiers["xfast"] = replace(cfg, em_iters=STAGE_ITERS)
+    tier0, rtier0 = ("fast", "xfast") if staged else ("full", "xfull")
+
+    def cfg_tier(tier: str) -> FillConfig:
+        if tier not in tiers:
+            if tier.startswith("exact"):
+                base = replace(cfg, exact_soft=True, detect_prec=False)
+            else:
+                base = cfg if tier.startswith("x") else scan_base
+            tiers[tier] = replace(base, em_iters=REF_EM_ITERS
+                                  if tier.endswith("200") else cfg.em_iters)
+        return tiers[tier]
 
     # width classes: an instance of length glen <= w runs bit-identically
     # in a config resized to max_gap_len = w (every legal placement lies in
     # [WL-L, WL+glen+L)), so each dispatch runs at its tightest class
     w_classes = sorted({w for w in GAP_BUCKETS if w < cfg.max_gap_len}
                        | {cfg.max_gap_len})
-    # precision tiers: "full" scans (the mini-cascade under scan_fast),
-    # "xfull" re-runs and finalizes at cfg — the scan only selects lengths
-    # and replay scalars, the re-run produces every output string — and
-    # "exact" is the escalation target of prec-flagged lanes
-    tiers = {
-        "full": replace(cfg, exact_soft=False, detect_prec=False)
-        if scan_fast else cfg,
-        "xfull": cfg,
-        "exact": replace(cfg, exact_soft=True, detect_prec=False)}
     cfgs: dict[tuple, FillConfig] = {}
 
     def cfg_for(tier: str, width: int) -> FillConfig:
         if (tier, width) not in cfgs:
-            base = tiers[tier]
+            base = cfg_tier(tier)
             cfgs[tier, width] = base if width == cfg.max_gap_len else replace(
                 base, max_gap_len=width, W=cfg.L + width + cfg.L,
                 Wp=cfg.L + width)
@@ -672,6 +865,12 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
         return next((w for w in w_classes if ln <= w), cfg.max_gap_len)
 
     nb = instance_batch
+    run_scan = partial(fill_batch_scan, finalize_flag=large_flag)
+    # checkGapReads probes run with the finalize extras on but no large-gap
+    # break (run(i,fp,g,1,1), Figbird.cpp:6097)
+    run_probe = partial(fill_batch_scan, finalize_flag=True,
+                        large_break=False)
+    run_full = partial(fill_batch_full_packed, finalize_flag=large_flag)
 
     def idx_tensors(rows, lens, size):
         pad = size - len(rows)
@@ -682,9 +881,9 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
         return gi_, gl_
 
     def dispatch_rows(fn, rows, lens, tier, batch, width=None):
-        """Run (row, len) instances at a precision tier; the packed host
-        matrix in input order.  ``width=None`` groups them by their tightest
-        width class (scan programs: identical results at any width >= the
+        """Run (row, len) instances at a tier; the packed host matrix in
+        input order.  ``width=None`` groups them by their tightest width
+        class (scan programs: identical results at any width >= the
         candidate length); else all run at ``width``."""
         n = len(rows)
         if width is None and len(w_classes) > 1:
@@ -711,36 +910,91 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
             out[sel] = h[: len(sel)]
         return out
 
-    def escalate(fn, rows, lens, host, prec_col, batch, label, width=None):
-        """Re-run the prec-flagged lanes of ``host`` with the exact
-        cascade, in place."""
-        if not prec_escalate:
-            return
-        sel = np.flatnonzero(host[:, prec_col] != 0)
-        if not sel.size:
-            return
-        _te = _time.time()
-        host[sel] = dispatch_rows(fn, [rows[i] for i in sel],
-                                  [lens[i] for i in sel], "exact", batch,
-                                  width)
-        stats[f"esc_exact_{label}"] = stats.get(f"esc_exact_{label}", 0) \
-            + int(sel.size)
-        stats["t_scan_esc"] = stats.get("t_scan_esc", 0) + round(
-            _time.time() - _te, 3)
+    def escalate(fn, rows, lens, host, bail_col, prec_col, batch, label,
+                 xtier=False, width=None):
+        """The escalation chain, in place on ``host``: bailed lanes ->
+        full cap -> 200; prec-flagged lanes -> exact (-> exact 200).
+        ``xtier``: the re-run tier family."""
+        pre = "x" if xtier else ""
 
-    def scan_wave(rows, lens):
-        host = dispatch_rows(fill_batch_scan, rows, lens, "full", nb)
+        def rerun(sel, tier, counter):
+            if not sel.size:
+                return
+            _te = _time.time()
+            host[sel] = dispatch_rows(fn, [rows[i] for i in sel],
+                                      [lens[i] for i in sel], tier, batch,
+                                      width)
+            stats[counter] = stats.get(counter, 0) + int(sel.size)
+            stats["t_scan_esc"] = stats.get("t_scan_esc", 0) + round(
+                _time.time() - _te, 3)
+
+        if staged:
+            rerun(np.flatnonzero(host[:, bail_col] != 0), pre + "full",
+                  f"esc_full_{label}")
+            rerun(np.flatnonzero(host[:, bail_col] != 0), pre + "full200",
+                  f"esc_200_{label}")
+        if prec_escalate:
+            rerun(np.flatnonzero(host[:, prec_col] != 0), "exact",
+                  f"esc_exact_{label}")
+            if not partial_mode:
+                rerun(np.flatnonzero(host[:, bail_col] != 0), "exact200",
+                      f"esc_exact200_{label}")
+        left = int(np.sum(host[:, bail_col] != 0))
+        if left and (staged or prec_escalate):
+            logger.warning("%s: %d lanes still unconverged at the reference "
+                           "200-iteration cap (accepted, as num_itr=200)",
+                           label, left)
+
+    def scan_wave(rows, lens, probe=False):
+        fn = run_probe if probe else run_scan
+        host = dispatch_rows(fn, rows, lens, tier0, nb)
         stats["scan_instances"] += len(rows)
-        escalate(fill_batch_scan, rows, lens, host, SCAN_COLS - 1, nb,
-                 "scan")
+        escalate(fn, rows, lens, host, SCAN_COLS - 2, SCAN_COLS - 1, nb,
+                 "probe" if probe else "scan")
         return host
+
+    _ts = _time.time()
+    # ---- read-count probe for small unmapped gaps (checkGapReads) --------
+    if not partial_mode:
+        probe_rows, probe_lens, probe_owner = [], [], []
+        for gi in gids:
+            plan = plans[gi]
+            if plan.large_gap or plan.gap.length > GAPTHRESH \
+                    or plan.side_flag:
+                continue
+            pls = _probe_lengths(plan.gap.length)
+            probe_rows += [row_of[gi]] * len(pls)
+            probe_lens += pls
+            probe_owner += [gi] * len(pls)
+        if probe_rows:
+            hostp = scan_wave(probe_rows, probe_lens, probe=True)
+            probe_acc: dict[int, list] = {}
+            for t, gi in enumerate(probe_owner):
+                probe_acc.setdefault(gi, []).append(int(hostp[t, 1]))
+            for gi, counts in probe_acc.items():
+                strict_gt = plans[gi].gap.length < 30
+                if not any((c > 3) if strict_gt else (c >= 3)
+                           for c in counts):
+                    # less_read_flag: finalize at the original length with
+                    # zero saved flags (no reads accepted)
+                    plans[gi].lengths = [plans[gi].gap.length]
+                    plans[gi].less_read = True
 
     # ---- block-lazy length scan (packed scalars only) --------------------
     acc = {gi: [] for gi in gids}
     evl = {gi: [] for gi in gids}
     nxt = {gi: 0 for gi in gids}
     replayed = {}
-    _ts = _time.time()
+
+    def replay(gi):
+        a = np.asarray(acc[gi])
+        extras = None if partial_mode else {
+            "edge": (a[:, 3] != 0) | (a[:, 4] != 0) | (a[:, 5] != 0),
+            "discont": a[:, 2] != 0}
+        return _replay_scan(plans[gi].lengths[: len(a)], a[:, 0],
+                            a[:, 1].astype(np.int64), plans[gi].gap.length,
+                            partial_mode, extras)
+
     while True:
         rows, lens, owners = [], [], []
         for gi in gids:
@@ -758,9 +1012,7 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
             acc[gi].append(host[t])
             evl[gi].append(lens[t])
         for gi in dict.fromkeys(owners):
-            a = np.asarray(acc[gi])
-            res = _replay_scan(plans[gi].lengths[: len(a)], a[:, 0],
-                               a[:, 1].astype(np.int64))
+            res = replay(gi)
             if res[3] or nxt[gi] >= len(plans[gi].lengths):
                 replayed[gi] = res
 
@@ -786,9 +1038,12 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
     chosen = {}
     for gi in gids:
         valid = np.asarray(acc[gi])[:, 1].astype(np.int64)
-        best_j, _, _, _, second_j = replayed[gi]
-        if valid[best_j] == 0:
-            best_j = orig_eval_j[gi]
+        best_j, _, varied, _, second_j = replayed[gi]
+        if partial_mode:
+            if valid[best_j] == 0:
+                best_j = orig_eval_j[gi]
+        elif not varied and not plans[gi].side_flag:
+            best_j = orig_eval_j[gi]  # check_change == 0 -> original (6533)
         chosen[gi] = (best_j, orig_eval_j[gi], second_j)
 
     # ---- winner + original (+ second) re-run, width-classed per gap ------
@@ -814,10 +1069,10 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                 rr_key.append((gi, tag, ln))
         lay = full_packed_layout(cfg_for("xfull", wcls))
         nbr = min(nb, 256)  # 2-3 instances per gap: a small fixed batch
-        rr_host = dispatch_rows(fill_batch_full_packed, rr_rows, rr_lens,
-                                "xfull", nbr, wcls)
-        escalate(fill_batch_full_packed, rr_rows, rr_lens, rr_host,
-                 lay["prec"][0], nbr, "rerun", wcls)
+        rr_host = dispatch_rows(run_full, rr_rows, rr_lens, rtier0, nbr,
+                                wcls)
+        escalate(run_full, rr_rows, rr_lens, rr_host, lay["bailed"][0],
+                 lay["prec"][0], nbr, "rerun", xtier=True, width=wcls)
         pad_c = cfg.max_gap_len - wcls
         for t, (gi, tag, ln) in enumerate(rr_key):
             row = rr_host[t]
@@ -833,7 +1088,8 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                 consensus=cons, accept=col("accept") > 0.5,
                 pos=col("pos").astype(np.int32),
                 saved_l=int(col("saved_l")[0]),
-                saved_r=int(col("saved_r")[0]), length=ln)
+                saved_r=int(col("saved_r")[0]),
+                region_perct=float(col("region_perct")[0]), length=ln)
     for gi in gids:
         if (gi, "second") in rr:
             sb = rr[(gi, "second")]
@@ -843,6 +1099,7 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
     # ---- finalize (packed), width-classed like the re-runs ---------------
     _tf = _time.time()
     fin_parsed = {}
+    nr = cfg.P if partial_mode else cfg.R
     for wcls in w_classes:
         gsub = [gi for gi in gids if cls_of[gi] == wcls]
         if not gsub:
@@ -850,6 +1107,16 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
         cfg_f = cfg_for("xfull", wcls)
         flay = finalize_packed_layout(cfg_f)
         fin_lens = [rr[(gi, "best")]["length"] for gi in gsub]
+
+        def saved(gi):
+            b = rr[(gi, "best")]
+            if not partial_mode and (plans[gi].less_read
+                                     or plans[gi].side_flag):
+                # saved_reads never set (Figbird.cpp:1709 vs 6369): no
+                # accepts
+                return np.zeros(nr, np.int8)
+            return b["accept"].astype(np.int8)
+
         fin_host, c0 = [], 0
         for nbf in _chunk_sizes(len(gsub), nb):
             sub = gsub[c0 : c0 + nbf]
@@ -860,15 +1127,16 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
             best = np.stack([rr[(gi, "best")]["consensus"][:wcls]
                              for gi in sub]
                             + [np.full(wcls, 4, np.int8)] * pad)
+            sv = np.stack([saved(gi) for gi in sub]
+                          + [np.zeros(nr, np.int8)] * pad)
             svl = np.asarray([rr[(gi, "best")]["saved_l"] for gi in sub]
                              + [-1] * pad, np.int32)
             svr = np.asarray([rr[(gi, "best")]["saved_r"] for gi in sub]
                              + [-1] * pad, np.int32)
             fin_host.append(finalize_batch_packed(
                 cfg_f, gap_arrays, gi_, gl_, marr,
-                torch.as_tensor(best, device=device),
-                torch.as_tensor(svl, device=device),
-                torch.as_tensor(svr, device=device)).cpu().numpy())
+                *(torch.as_tensor(x, device=device)
+                  for x in (best, sv, svl, svr))).cpu().numpy())
         fin_host = np.concatenate(fin_host)[: len(gsub)]
         gpad = cfg.max_gap_len - wcls
         for t, gi in enumerate(gsub):
@@ -878,16 +1146,23 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                 s, e = flay[name]
                 return row[s:e]
 
-            counts = fcol("counts").reshape(wcls, 5).copy()
-            qual = fcol("qual").reshape(wcls, 5)
-            if gpad:
-                counts = np.concatenate([counts,
-                                         np.zeros((gpad, 5), counts.dtype)])
-                qual = np.concatenate([qual, np.zeros((gpad, 5), qual.dtype)])
-            fin_parsed[gi] = (dict(counts=counts, qual=qual,
-                                   accept=fcol("accept") > 0.5,
-                                   pos=fcol("pos").astype(np.int32),
-                                   used=int(fcol("used")[0])), fin_lens[t])
+            def zone(name):
+                z = fcol(name).reshape(wcls, 5).copy()
+                return np.concatenate([z, np.zeros((gpad, 5), z.dtype)]) \
+                    if gpad else z
+
+            fin = dict(counts=zone("counts"), accept=fcol("accept") > 0.5,
+                       pos=fcol("pos").astype(np.int32),
+                       used=int(fcol("used")[0]))
+            if partial_mode:
+                fin["qual"] = zone("qual")
+            else:
+                fin["left_right_check"] = fcol("left_right_check") > 0.5
+                fin["umax_left"] = int(fcol("umax_left")[0])
+                fin["umax_right"] = int(fcol("umax_right")[0])
+                fin["left_start_zero"] = bool(fcol("left_start_zero")[0])
+                fin["right_fin_glen"] = bool(fcol("right_fin_glen")[0])
+            fin_parsed[gi] = (fin, fin_lens[t])
     stats["t_finalize"] = stats.get("t_finalize", 0) + round(
         _time.time() - _tf, 3)
 
@@ -897,13 +1172,90 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
         plan = plans[gi]
         fin, best_len = fin_parsed[gi]
         o = rr[(gi, "orig")]
-        out_strings[gi] = _finish_partial(plan, best_len, cfg, fin,
-                                          o["accept"], o["pos"])
+        if partial_mode:
+            out_strings[gi] = _finish_partial(plan, best_len, cfg, fin,
+                                              o["accept"], o["pos"])
+        else:
+            out_strings[gi] = _finish_unmapped(
+                plan, best_len, cfg, fin, o["accept"], o["pos"],
+                rr[(gi, "best")]["region_perct"])
         stats["filled"] += 1
-        seqs = plan.bundle.p_seq
+        seqs = plan.bundle.p_seq if partial_mode else plan.bundle.u_seq
         placements[gi] = [(int(k), int(fin["pos"][k]), seqs[k])
                           for k in range(len(seqs)) if fin["accept"][k]]
     stats["t_guard"] = stats.get("t_guard", 0) + round(_time.time() - _tg, 3)
+
+
+def _finish_unmapped(plan, best_len, cfg, fin, orig_accept, orig_pos,
+                     region_perct):
+    """finalize guard battery, unmapped (5415-5507 + 5619-5641)."""
+    g = plan.gap
+    counts = fin["counts"].copy()
+    accept = fin["accept"]
+    pos = fin["pos"]
+    lens = np.array([len(s) for s in plan.bundle.u_seq]
+                    + [0] * (accept.shape[0] - plan.bundle.n_unmapped))
+    used = int(fin["used"])
+    lr = fin["left_right_check"]
+    umax_l, umax_r = int(fin["umax_left"]), int(fin["umax_right"])
+    lsz, rfg = bool(fin["left_start_zero"]), bool(fin["right_fin_glen"])
+    thresh = 4
+    nflag = [False, False]
+    lflag = [False, False]
+    gap_len = best_len
+
+    if ((0 < umax_l < 2 * thresh) or (0 < umax_r < 2 * thresh)) and \
+            region_perct > 0.75:
+        used = 0
+    if (0 < umax_l < thresh) or (0 < umax_r < thresh):
+        cons = _host_consensus(counts, gap_len)
+        if len(_find_region(cons)) >= 1:
+            if 0 < umax_l < thresh:
+                lflag[0] = True
+            if 0 < umax_r < thresh:
+                lflag[1] = True
+        else:
+            used = 0
+            umax_l = umax_r = -1
+    if not lr[0] and not lr[1] and used != 0:
+        used = 0
+        umax_l = umax_r = -1
+    if (not lr[0] and lsz) or (not lr[1] and rfg):
+        cons = _host_consensus(counts, gap_len)
+        if len(_find_region(cons)) >= 1:
+            nflag[0] = not lr[0]
+            nflag[1] = not lr[1]
+
+    recompute = False
+    if used == 0 or not (lr[0] and lr[1]):
+        gap_len = g.length
+        counts = np.zeros((cfg.max_gap_len, 5), np.float32)
+        # recompute2 from original-length placements (5495-5506)
+        if ((not lr[0] and lr[1] and umax_r >= thresh)
+                or (lr[0] and not lr[1] and umax_l >= thresh)):
+            recompute = True
+            for k in range(plan.bundle.n_unmapped):
+                if orig_accept[k]:
+                    p = int(orig_pos[k])
+                    s = plan.bundle.u_seq[k]
+                    for j in range(len(s)):
+                        if 0 <= p + j < gap_len and s[j] < 4:
+                            counts[p + j, s[j]] += 1
+
+    cons = _host_consensus(counts, gap_len)
+    if lr[0] or lr[1] or used != 0:
+        if nflag[0] or lflag[0]:
+            cons[0] = N
+        if (nflag[1] or lflag[1]) and gap_len > 0:
+            cons[gap_len - 1] = N
+        src_accept = orig_accept if recompute else accept
+        src_pos = orig_pos if recompute else pos
+        clear = _recheck_sequence(cons, src_pos[: len(lens)], lens,
+                                  src_accept[: len(lens)], g.length,
+                                  region_perct)
+        if clear:
+            return np.full(g.length, N, np.int8)
+    return cons[:gap_len]
 
 
 def _finish_partial(plan, best_len, cfg, fin, orig_accept, orig_pos):

@@ -1,14 +1,19 @@
-"""Batched GapFiller EM, partial mode (``figbird_tpu/fill/em.py``).
+"""Batched GapFiller EM, partial and unmapped modes
+(``figbird_tpu/fill/em.py``).
 
 The reference ``vmap``s each per-instance function over a leading instance
 axis; here that axis is written out: every tensor of an instance batch
-carries a leading dimension I.  The banded partial placement runs on three
-kernels (``ops.band``): the fused soft score (K2), the hard score against
-the consensus (K3), the soft-count cascade (K1: the exact 6-level cascade
-of the production default, or a ``soft_levels``-deep mini-cascade) and the
+carries a leading dimension I.  Both placements run on four kernels
+(``ops.band``): the fused soft score (K2), the hard score against the
+consensus (K3), the soft-count cascade (K1: the exact 6-level cascade of the
+production default, or a ``soft_levels``-deep mini-cascade) and the
 raw-weight count fold (K4: the plain-f32 soft accumulate of ``soft_levels ==
-1`` and the finalize counts).  The unmapped mode raises
-``NotImplementedError``.
+1``, the unmapped hard counts and the finalize counts).  The partial mode
+places reads in two read-length bands at the gap edges; the unmapped mode
+scores every read at every position of the window, both strands' factors,
+and iterates until its consensus is stable (the reference's ``while_loop``,
+here a per-lane live mask: finished lanes are frozen by ``torch.where``, and
+the loop ends when no lane is live).
 """
 
 from __future__ import annotations
@@ -37,11 +42,6 @@ _CASCADE_TAU = float(np.exp(_CASCADE_CUT - _CASCADE_SHIFT))  # e^-62
 _CASCADE_LEVELS = 6
 # weights below this natural-log value vanish at every cascade level
 _MIN_LOGW_REP = -(5.0 * 140.0 + 103.0)
-
-_NEXT_SLICE = ("not ported yet: the unmapped mode is a later slice of the "
-               "port (ROADMAP.md, queue 1 item 8); the port runs partial-"
-               "mode fills")
-
 
 @dataclass(frozen=True)
 class FillConfig:
@@ -80,8 +80,9 @@ def _soft_m(cfg: FillConfig) -> int:
 
 
 def check_supported(cfg: FillConfig) -> None:
-    if not cfg.partial_mode or cfg.unmapped_mode:
-        raise NotImplementedError(_NEXT_SLICE)
+    if cfg.partial_mode == cfg.unmapped_mode:
+        raise ValueError("FillConfig: exactly one of partial_mode and "
+                         "unmapped_mode must be set")
 
 
 def _csum(x: torch.Tensor) -> torch.Tensor:
@@ -628,11 +629,437 @@ def em_partial_instance(cfg: FillConfig, inst, model) -> dict:
         left_max=left_max, right_min=right_min, prec=prec)
 
 
-def fill_batch(cfg: FillConfig, insts: dict, model: dict) -> dict:
+# ---------------------------------------------------------------------------
+# unmapped placement: every read is scored at every candidate position of
+# the window, with the strand's cycle-indexed error rates; candidate
+# legality is the read's reach into the gap plus the insert-size bounds
+# ---------------------------------------------------------------------------
+
+def _legal_unmapped(cfg: FillConfig, inst, model):
+    """Candidate legality and the insert-prior index of every (read,
+    position): (legal (I,R,Wp) bool, t_ins (I,R,Wp) clipped)."""
+    dev = inst["ur"].device
+    p = torch.arange(cfg.Wp, device=dev)
+    gs = inst["gap_start"][:, None, None]
+    cpos = gs - cfg.WL + p
+    rlen = inst["u_len"][..., None]
+    ge = gs + inst["gap_len"][:, None, None]
+    rng = (cpos >= gs - rlen + 1) & (cpos < ge)
+    pos1 = inst["u_pos"][..., None]
+    left = pos1 < gs
+    pos1_r = pos1 + (inst["gap_len"] - inst["orig_gap"])[:, None, None]
+    t_ins = torch.where(left, cpos - pos1 + rlen, pos1_r - cpos + rlen)
+    ins_ok = (t_ins >= cfg.insert_tmin) & (t_ins <= cfg.insert_tmax)
+    tc = torch.clamp(t_ins, 0, model["ln_ins"].shape[0] - 1)
+    return rng & ins_ok & inst["u_valid"][..., None], tc
+
+
+def _coverage_full(cfg: FillConfig, legal, lens):
+    """(I, W) rows covered by any legal full-width placement."""
+    dev = legal.device
+    ml = torch.where(legal, lens[..., None], 0).max(dim=1).values  # (I,Wp)
+    creach = torch.cummax(torch.arange(cfg.Wp, device=dev) + ml,
+                          dim=1).values
+    ext = torch.cat([creach, creach[:, -1:].expand(-1, cfg.W - cfg.Wp)], 1)
+    return ext > torch.arange(cfg.W, device=dev)
+
+
+def _unmapped_prep(cfg: FillConfig, inst, model) -> dict:
+    """Loop-invariant tensors of the unmapped EM: base masks, legality, the
+    insert prior, the strand selector and the flank counts."""
+    L = inst["ur"].shape[-1]
+    jv = torch.arange(L, device=inst["ur"].device) < inst["u_len"][..., None]
+    legal, t_ins = _legal_unmapped(cfg, inst, model)
+    return dict(jv=jv, cvals=jv.to(torch.float32), legal=legal,
+                prior=model["ln_ins"][t_ins.long()],
+                rev=(inst["u_rev"] == 1)[..., None],
+                flank=_counts_flank(inst))
+
+
+def _hard_score_unmapped(cfg: FillConfig, inst, model, prep, gap_string):
+    """Hard scores (I,R,Wp) against ``gap_string``: K3 with both strands'
+    factors, the read's own strand selected, illegal positions NEG."""
+    ur, jv = inst["ur"], prep["jv"]
+    sh_f = band_score_hard(ur, jv, gap_string, model["a_fwd"],
+                           model["b_fwd"], model["ln_et"], cfg.Wp)
+    sh_r = band_score_hard(ur, jv, gap_string, model["a_rev"],
+                           model["b_rev"], model["ln_et"], cfg.Wp)
+    sh = torch.where(prep["rev"], sh_r, sh_f)
+    return torch.where(prep["legal"], sh, NEG)
+
+
+def _low_regions(cfg: FillConfig, gap_cov, gap_len):
+    """Low-coverage runs of >= 11 rows (Figbird.cpp:3935-3977): (first row,
+    last row, any) of the qualifying rows per instance."""
+    dev = gap_cov.device
+    t = torch.arange(cfg.max_gap_len, device=dev)
+    gl = gap_len[:, None]
+    in_gap = t < gl
+    low = (gap_cov < cfg.coverage_threshold2) & in_gap
+    not_low_idx = torch.where(~low & in_gap, t, -1)
+    run_start = torch.cummax(not_low_idx, dim=1).values + 1
+    nxt = torch.where(~low & in_gap, t, _BIG)
+    next_not_low = torch.cummin(nxt.flip(1), dim=1).values.flip(1)
+    run_end = torch.where(next_not_low < _BIG, next_not_low - 1, gl - 1)
+    qualif = low & (run_end - run_start + 1 >= 11)
+    first_q = torch.where(qualif, t, _BIG).min(dim=1).values
+    last_q = torch.where(qualif, t, -_BIG).max(dim=1).values
+    return first_q, last_q, qualif.any(dim=1)
+
+
+def _find_overlap_unmapped(cfg: FillConfig, inst, accept, pos_gap, lens):
+    """findOverlapUnmapped (2945-3019), batched: chain discontinuity
+    penalties.  Returns (value (I,), new_accept (I,R), discont (I,))."""
+    R = accept.shape[1]
+    dev = accept.device
+    key = torch.where(accept, pos_gap, -200)
+    order = torch.argsort(key, dim=1, stable=True)
+    sp = key.gather(1, order)
+    sl = lens.gather(1, order)
+    real = sp != -200
+    diff = sp + sl - torch.roll(sp, -1, dims=1)
+    pairable = real & (torch.arange(R, device=dev) < R - 1)
+    discont = pairable & (diff >= 0) & (diff < 4)  # match_count_discont
+    gap_pen = pairable & (diff < 0)
+    value = torch.where(discont, -250.0, 0.0).sum(dim=1) \
+        + torch.where(gap_pen, -200.0, 0.0).sum(dim=1)
+    # unmark both reads of gap-separated pairs (both index maps permute)
+    unmark = torch.zeros_like(accept).scatter(1, order, gap_pen) \
+        | torch.zeros_like(accept).scatter(1, torch.roll(order, -1, dims=1),
+                                           gap_pen)
+    new_accept = accept & ~unmark
+    # edge-crossing advantages (+50), counted on the pre-unmark set
+    gl = inst["gap_len"][:, None]
+    lr1 = accept & (pos_gap < 0) & (-pos_gap >= 3) & (pos_gap + lens > 0)
+    lr2 = accept & (pos_gap < gl) & (pos_gap + lens - gl >= 3)
+    value = value + 50.0 * (lr1.sum(dim=1) + lr2.sum(dim=1))
+    return value, new_accept, discont.any(dim=1)
+
+
+def _update_reanchor(cfg: FillConfig, inst, counts, gc, accept, has_place,
+                     pl_major, left_max):
+    """The "update" re-anchoring step (Figbird.cpp:4030-4376), batched.
+
+    Unplaced-but-placeable reads are re-anchored by exact suffix/prefix
+    match (> 25% of the read length) onto the consensus edges around the
+    unfilled N region; matching reads vote (weight = match length) into the
+    region, and rows with votes replace the counts with frequencies.  With
+    no left anchor, the partial-read majority string votes instead
+    (4310-4321; its flag is the LAST eligible read's insert flag, the
+    reference's loop-variable reuse).  The right-side fallback (4322-4331)
+    is dead code in the reference and is not replicated.  Returns the
+    counts (I, W, 5); the N column is untouched."""
+    ur, rl = inst["ur"], inst["u_len"]
+    I, R, L = ur.shape
+    mgl = cfg.max_gap_len
+    dev = ur.device
+    MS = max(int(L * 0.67), 2)
+    thresh = int(L * 0.25)
+    min_gap = L // 2 + 1
+    gap_len = inst["gap_len"]
+    gl = gap_len[:, None]
+    gs = inst["gap_start"]
+    t = torch.arange(mgl, device=dev)
+    in_gap = t < gl
+    isn = (gc == 4) & in_gap
+
+    # long-N-run endpoints (index_pair[0/1], 4058-4093); runs < min_gap_len
+    # are ignored
+    run_start = torch.cummax(torch.where(~isn & in_gap, t, -1),
+                             dim=1).values + 1
+    nxt = torch.where(~isn & in_gap, t, _BIG)
+    next_non = torch.cummin(nxt.flip(1), dim=1).values.flip(1)
+    run_end = torch.where(next_non < _BIG, next_non - 1, gl - 1)
+    qual = isn & (run_end - run_start + 1 >= min_gap)
+    any_q = qual.any(dim=1)
+    s0 = torch.where(qual, run_start, _BIG).min(dim=1).values
+    e1 = torch.where(qual, run_end, -_BIG).max(dim=1).values
+    index0 = torch.clamp_min(s0 - 1, 0)
+    index1 = torch.minimum(e1 + 1, gap_len - 1)
+
+    # left text segment: up to MS chars ending at index0, N-truncated (4110)
+    jj = torch.arange(MS, device=dev)
+    TLpos = torch.clamp_min(index0 - MS + 1, 0)[:, None] + jj
+    TL = gc.gather(1, torch.clamp(TLpos, 0, mgl - 1))
+    badl = (TL == 4) | (TLpos >= gl)
+    VL = torch.where(badl.any(dim=1), badl.to(torch.int8).argmax(dim=1), MS)
+    # right segment: MS chars from index1, N kept verbatim (4123-4129)
+    TR_len = torch.clamp_max(gap_len - index1, MS)
+    TR = gc.gather(1, torch.clamp(index1[:, None] + jj, 0, mgl - 1))
+    TRrev = TR.gather(1, torch.clamp(TR_len[:, None] - 1 - jj, 0, MS - 1))
+
+    elig = ~accept & has_place & inst["u_valid"]
+    upos = inst["u_pos"]
+
+    def ins_ok(idx):  # per-read insert gating at an anchor (4177-4197)
+        placed = (gs + idx)[:, None]
+        ins = torch.where(upos < gs[:, None], placed + rl - upos,
+                          upos - placed + rl)
+        return (ins >= cfg.insert_tmin + 100) & (ins <= cfg.insert_tmax - 100)
+
+    ok0, ok1 = ins_ok(index0), ins_ok(index1)
+
+    def first_match(seg, seg_len, read_k):
+        """Smallest offset j with seg[j:seg_len] == read[:seg_len-j]
+        exactly and match length > thresh: (found, match_len), (I, R)."""
+        m_len = seg_len[:, None] - jj                            # (I, MS)
+        at = torch.clamp(jj[:, None] + jj[None, :], 0, MS - 1)   # (j, k)
+        seg_at = seg[:, at.reshape(-1)].reshape(I, 1, MS, MS)
+        miss = (seg_at != read_k[:, :, None, :]) \
+            | (jj >= rl[..., None, None])                        # (I,R,j,k)
+        need = jj < m_len[:, None, :, None]
+        okk = ~(miss & need).any(dim=-1)                         # (I, R, j)
+        ok = okk & ((m_len > thresh) & (jj < seg_len[:, None]))[:, None, :]
+        jstar = ok.to(torch.int8).argmax(dim=-1)
+        return ok.any(dim=-1), seg_len[:, None] - jstar
+
+    has_l, match_l = first_match(TL, VL, ur[..., :MS])
+    # the right side matches the reversed read against the reversed segment
+    # (4250-4262)
+    rev_all = shift_left(ur.flip(-1), torch.clamp(L - rl, 0, L), 4)
+    has_r, match_r = first_match(TRrev, TR_len, rev_all[..., :MS])
+    has_l = has_l & elig & ok0 & any_q[:, None]
+    has_r = has_r & elig & ok1 & any_q[:, None]
+
+    ri = torch.arange(L, device=dev)
+    in_read = ri < rl[..., None]
+    i0, i1 = index0[:, None, None], index1[:, None, None]
+    # left votes: read char ri lands at index0 - match + 1 + ri (4224-4238)
+    pos_l = i0 - match_l[..., None] + 1 + ri
+    val_l = has_l[..., None] & (pos_l > i0) & (pos_l < gl[..., None]) \
+        & in_read
+    w_l = torch.where(val_l, match_l[..., None], 0).to(torch.float32)
+    # right votes: reversed char ri lands at index1 + match - 1 - ri
+    # (4283-4299)
+    pos_r = i1 + match_r[..., None] - 1 - ri
+    val_r = has_r[..., None] & (pos_r < i1) & (pos_r >= 0) & in_read
+    w_r = torch.where(val_r, match_r[..., None], 0).to(torch.float32)
+    idx_l = torch.clamp(pos_l, 0, mgl - 1).reshape(I, -1)
+    idx_r = torch.clamp(pos_r, 0, mgl - 1).reshape(I, -1)
+    cols = []
+    for c in range(4):  # read-N spreads over ACGT
+        wl_c = torch.where((ur == c) | (ur == 4), w_l, 0.0).reshape(I, -1)
+        wr_c = torch.where((rev_all == c) | (rev_all == 4), w_r,
+                           0.0).reshape(I, -1)
+        col = torch.zeros((I, mgl), dtype=torch.float32, device=dev)
+        cols.append(col.scatter_add(1, idx_l, wl_c).scatter_add(1, idx_r,
+                                                                wr_c))
+    cp = torch.stack(cols, dim=-1)                               # (I,mgl,4)
+
+    # left partial-majority fallback (4310-4321)
+    last_elig = torch.where(elig, torch.arange(R, device=dev), -1).max(
+        dim=1).values
+    ok0_last = ok0.gather(1, torch.clamp(last_elig, 0, R - 1)[:, None])[:, 0]
+    flag1_last = torch.where(last_elig >= 0, ok0_last, True) & any_q
+    len_pl = torch.clamp_min(left_max - 4 + 1 - 1, 0)
+    fb = flag1_last & (has_l.sum(dim=1) == 0) & (index0 < len_pl)
+    fb_pos = fb[:, None] & (t > index0[:, None]) & (t < len_pl[:, None])
+    plm = torch.clamp_max(pl_major, 4)
+    fb4 = torch.stack([((plm == c) | (plm == 4)).to(torch.float32)
+                       for c in range(4)], dim=-1)
+    cp = cp + torch.where(fb_pos[..., None], fb4, 0.0)
+
+    # replace the gap rows that got votes with frequencies (4334-4352)
+    tot = cp.sum(dim=-1)
+    gidx = torch.arange(cfg.W, device=dev) - cfg.WL
+    gcl = torch.clamp(gidx, 0, mgl - 1)
+    cp_w, tot_w = cp[:, gcl], tot[:, gcl]
+    repl = (tot_w > 0) & (gidx >= 0) & (gidx < gl) & any_q[:, None]
+    new4 = torch.where(repl[..., None],
+                       cp_w / torch.clamp_min(tot_w, 1e-9)[..., None],
+                       counts[..., :4])
+    return torch.cat([new4, counts[..., 4:]], dim=-1)
+
+
+def _place_unmapped(cfg: FillConfig, inst, model, probs, eprobs,
+                    finalize_flag: bool, prep: dict) -> dict:
+    """One unmapped EM pass (placeReads, unmapped branch): soft scores of
+    both strands (K2 twice), the soft counts (K1, or K4 at ``soft_levels ==
+    1``), the hard pass against the soft consensus (K3 twice), hard counts
+    at the argmax positions (K4); with ``finalize_flag`` the low-coverage
+    region, the interior-read drop and the chain discontinuity penalties."""
+    ur, u_len, u_valid = inst["ur"], inst["u_len"], inst["u_valid"]
+    legal = prep["legal"]
+    gap_zone = _gap_zone(inst, cfg)
+
+    # soft pass: two strand groups for the cycle-indexed error rate
+    ln_f = band_score_soft(ur, prep["jv"], probs, eprobs, model["e_fwd"],
+                           cfg.Wp)
+    ln_r = band_score_soft(ur, prep["jv"], probs, eprobs, model["e_rev"],
+                           cfg.Wp)
+    lnP = torch.where(prep["rev"], ln_r, ln_f) + prep["prior"]
+    lnP = torch.where(legal, lnP, NEG)
+    logw_u = 0.5 * lnP / LN10
+    soft, deep_total = _accumulate_logw(logw_u, legal, ur, prep["cvals"], cfg)
+    counts = torch.where(gap_zone[..., None], soft, prep["flank"])
+    if cfg.detect_prec and not cfg.exact_soft:
+        eff = legal & (logw_u >= _MIN_LOGW_REP)
+        cov = _coverage_full(cfg, eff, u_len)
+        prec = (gap_zone & cov & (deep_total <= _CASCADE_TAU)).any(dim=1)
+    else:
+        prec = torch.zeros(ur.shape[0], dtype=torch.bool, device=ur.device)
+    mx10 = lnP.max(dim=-1).values / LN10
+
+    # hard pass against the current consensus
+    cons0, _ = consensus_from_counts(counts, gap_zone, 0, 0)
+    sh = _hard_score_unmapped(cfg, inst, model, prep,
+                              torch.where(gap_zone, cons0, inst["tmpl"]))
+    mh10 = sh.max(dim=-1).values / LN10
+    pos_h = sh.argmax(dim=-1).to(torch.int32) - cfg.WL
+    accept = (mh10 > NEG / 2) & (-mh10 < cfg.gap_prob_cutoff) & u_valid
+    likelihood = _csum(torch.where(u_valid, torch.where(accept, mh10, -50.0),
+                                   0.0))
+    valid = accept.sum(dim=1)
+
+    # hard counts at the max positions only (3868-3879)
+    w_hard = (accept[..., None]
+              & (torch.arange(cfg.Wp, device=ur.device)
+                 == (pos_h + cfg.WL)[..., None])).to(torch.float32)
+    new_counts = fold_counts(w_hard, ur, prep["cvals"], cfg.W)
+    new_counts = torch.where(gap_zone[..., None], new_counts, 0.0)
+    cons2, cov2 = consensus_from_counts(new_counts, gap_zone, 1,
+                                        cfg.coverage_threshold1)
+    gap_cov = cov2[:, cfg.WL : cfg.WL + cfg.max_gap_len]
+
+    I = ur.shape[0]
+    region_perct = torch.zeros(I, dtype=torch.float32, device=ur.device)
+    discont = torch.zeros(I, dtype=torch.bool, device=ur.device)
+    if finalize_flag:
+        gap_len = inst["gap_len"]
+        first_q, last_q, any_q = _low_regions(cfg, gap_cov, gap_len)
+        region_perct = torch.where(
+            any_q, (last_q - first_q).to(torch.float32)
+            / torch.clamp_min(gap_len, 1), 0.0)
+        # discard interior-only reads (3993-4013)
+        interior = accept & (pos_h >= first_q[:, None]) \
+            & (pos_h + u_len - 1 < last_q[:, None]) & any_q[:, None]
+        likelihood = likelihood - 50.0 * interior.sum(dim=1)
+        accept = accept & ~interior
+        valid = valid - interior.sum(dim=1)
+        ov_val, accept, discont = _find_overlap_unmapped(cfg, inst, accept,
+                                                         pos_h, u_len)
+        likelihood = likelihood + ov_val
+    return dict(counts=counts, likelihood=likelihood, accept=accept,
+                pos=pos_h, valid=valid, cons2=cons2,
+                region_perct=region_perct, discont=discont, mx10=mx10,
+                prec=prec)
+
+
+def em_unmapped_instance(cfg: FillConfig, inst, model, finalize_flag: bool,
+                         large_break: bool | None = None) -> dict:
+    """Unmapped EM over an instance batch: each lane iterates until its
+    consensus is stable ``comp_stable`` times or it reaches the iteration
+    cap (fillGap, unmapped branch).  Small gaps run the loop with the
+    finalize extras off and one finalize pass at the end; ``large_break``
+    (default: ``finalize_flag``) adds the large-gap region break.  A lane's
+    outputs do not depend on its batch-mates: the staged scan re-runs
+    bailed lanes from scratch and relies on that."""
+    check_supported(cfg)
+    if large_break is None:
+        large_break = finalize_flag
+    I = inst["gap_len"].shape[0]
+    R = inst["ur"].shape[1]
+    dev = inst["ur"].device
+    gap_zone = _gap_zone(inst, cfg)
+    counts0 = _counts_flank(inst)
+    counts0[..., 4] += torch.where(gap_zone, 1.0, 0.0)
+    probs0 = compute_probs_gap(counts0)
+    # the partial-stack initialisation runs in unmapped mode too
+    st4, left_max, _ = _stack_for(inst, cfg)
+    pl_major = st4.argmax(dim=-1).to(torch.int8)  # partial_left chars
+    tot = st4.sum(dim=-1, keepdim=True)
+    stp_w = torch.zeros_like(probs0)
+    stp_w[:, cfg.WL : cfg.WL + cfg.max_gap_len] = torch.cat(
+        [st4 / tot, torch.zeros_like(tot)], dim=-1)
+    probs0 = torch.where(gap_zone[..., None], stp_w, probs0)
+    prep = _unmapped_prep(cfg, inst, model)
+
+    def zeros(*shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    s = dict(it=zeros(I, dtype=torch.int32), comp=zeros(I, dtype=torch.int32),
+             done=zeros(I, dtype=torch.bool), probs=probs0,
+             eprobs=compute_error_probs_gap(probs0, model["et"]),
+             counts=counts0, likelihood=zeros(I, dtype=torch.float32),
+             accept=zeros(I, R, dtype=torch.bool),
+             pos=zeros(I, R, dtype=torch.int32),
+             valid=zeros(I, dtype=torch.int64),
+             prev=torch.full((I, cfg.max_gap_len), -1, dtype=torch.int8,
+                             device=dev),
+             region_perct=zeros(I, dtype=torch.float32),
+             discont=zeros(I, dtype=torch.bool),
+             prec=zeros(I, dtype=torch.bool))
+    while True:
+        live = ~s["done"] & (s["it"] < cfg.em_iters)
+        if not bool(live.any()):  # one host sync per trip
+            break
+        out = _place_unmapped(cfg, inst, model, s["probs"], s["eprobs"],
+                              finalize_flag, prep)
+        gc = out["cons2"][:, cfg.WL : cfg.WL + cfg.max_gap_len]
+        comp = torch.where((gc == s["prev"]).all(dim=1), s["comp"] + 1, 0)
+        counts = out["counts"]
+        if finalize_flag:
+            # "update" re-anchoring of unplaced reads onto the consensus
+            # edges (4029: comp_count >= 1, region_perct != 0, not the last
+            # EM iteration)
+            upd = _update_reanchor(cfg, inst, counts, gc, out["accept"],
+                                   out["mx10"] > NEG / 2, pl_major, left_max)
+            cnd = (comp >= 1) & (out["region_perct"] != 0.0) \
+                & (s["it"] != cfg.em_iters - 1)
+            counts = torch.where(cnd[:, None, None], upd, counts)
+        probs = compute_probs_gap(counts)
+        done = comp >= cfg.comp_stable
+        if large_break:  # large-gap early break (6338)
+            done = done | (out["region_perct"]
+                           * inst["gap_len"].to(torch.float32) < 2.0 * cfg.L)
+        new = dict(it=s["it"] + 1, comp=comp, done=done, probs=probs,
+                   eprobs=compute_error_probs_gap(probs, model["et"]),
+                   counts=out["counts"], likelihood=out["likelihood"],
+                   accept=out["accept"], pos=out["pos"], valid=out["valid"],
+                   prev=gc, region_perct=out["region_perct"],
+                   discont=out["discont"], prec=s["prec"] | out["prec"])
+        s = {k: torch.where(live.reshape((I,) + (1,) * (v.dim() - 1)),
+                            new[k], v).to(v.dtype)
+             for k, v in s.items()}
+
+    if not finalize_flag:
+        # one finalize-mode placeReads after convergence (6348-6352)
+        out = _place_unmapped(cfg, inst, model, s["probs"], s["eprobs"], True,
+                              prep)
+        s.update({k: out[k] for k in ("likelihood", "accept", "pos", "valid",
+                                      "counts", "region_perct", "discont")})
+        s["prec"] = s["prec"] | out["prec"]
+
+    cons, _ = consensus_from_counts(s["counts"], gap_zone, 0, 0)
+    # edge flags for the small-gap scan heuristics (3894-3911)
+    pos, acc, u_len = s["pos"], s["accept"], inst["u_len"]
+    gl = inst["gap_len"][:, None]
+    val = pos + u_len - gl
+    ucoverf = (acc & (pos < 0) & (val > 0) & (-pos > 3) & (val > 3)).any(1)
+    umaxleftf = (acc & (pos < 0) & (pos + u_len > 0) & (-pos > 3)).any(1)
+    umaxrightf = (acc & (pos > 0) & (pos < gl) & (val > 0) & (val > 3)).any(1)
+    return dict(
+        likelihood=s["likelihood"],
+        consensus=cons[:, cfg.WL : cfg.WL + cfg.max_gap_len],
+        valid=s["valid"], accept=acc, pos=pos, counts=s["counts"],
+        region_perct=s["region_perct"], discont=s["discont"],
+        ucoverf=ucoverf, umaxleftf=umaxleftf, umaxrightf=umaxrightf,
+        iters=s["it"], prec=s["prec"],
+        # hit the cap unconverged: the staged scan re-runs these lanes at a
+        # deeper cap
+        bailed=~s["done"] & (s["it"] >= cfg.em_iters))
+
+
+def fill_batch(cfg: FillConfig, insts: dict, model: dict,
+               finalize_flag: bool = True,
+               large_break: bool | None = None) -> dict:
     """EM over the instance batch (leading axis of every ``insts`` array);
     ``model``: e_fwd/e_rev/a_fwd/a_rev/b_fwd/b_rev (L,), et/ln_et (5,5),
-    ln_ins (M,)."""
-    return em_partial_instance(cfg, insts, model)
+    ln_ins (M,).  ``finalize_flag``/``large_break`` apply to the unmapped
+    mode."""
+    if cfg.partial_mode:
+        return em_partial_instance(cfg, insts, model)
+    return em_unmapped_instance(cfg, insts, model, finalize_flag, large_break)
 
 
 # ---------------------------------------------------------------------------
@@ -663,9 +1090,57 @@ def _gather_inst(cfg: FillConfig, gap_arrays, gap_idx, gap_len):
     return inst
 
 
-def fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model) -> dict:
-    return em_partial_instance(cfg, _gather_inst(cfg, gap_arrays, gap_idx,
-                                                 gap_len), model)
+def fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
+                        finalize_flag: bool = True,
+                        large_break: bool | None = None) -> dict:
+    return fill_batch(cfg, _gather_inst(cfg, gap_arrays, gap_idx, gap_len),
+                      model, finalize_flag, large_break)
+
+
+# ---------------------------------------------------------------------------
+# finalize passes: deterministic re-placement against the chosen string, no
+# insert prior (partial) / the insert legality (unmapped)
+# ---------------------------------------------------------------------------
+
+def _best_gap_string(cfg: FillConfig, inst, best_string, gap_zone):
+    bws = torch.full((best_string.shape[0], cfg.W), 4, dtype=torch.int8,
+                     device=best_string.device)
+    bws[:, cfg.WL : cfg.WL + cfg.max_gap_len] = best_string
+    return torch.where(gap_zone, bws, inst["tmpl"])
+
+
+def finalize_unmapped_instance(cfg: FillConfig, inst, model, best_string,
+                               saved) -> dict:
+    """Finalize placement of the unmapped reads against the chosen string
+    (batched): hard re-placement (K3, both strands), acceptance gated by the
+    winning scan instance's saved-read flags, hard counts (K4) and the edge
+    statistics of the guard battery."""
+    check_supported(cfg)
+    gap_zone = _gap_zone(inst, cfg)
+    gap_string = _best_gap_string(cfg, inst, best_string, gap_zone)
+    prep = _unmapped_prep(cfg, inst, model)
+    sh = _hard_score_unmapped(cfg, inst, model, prep, gap_string)
+    mh10 = sh.max(dim=-1).values / LN10
+    pos = sh.argmax(dim=-1).to(torch.int32) - cfg.WL
+    accept = ((mh10 > NEG / 2) & (-mh10 < cfg.gap_prob_cutoff)
+              & (saved == 1) & inst["u_valid"])
+    w_hard = (accept[..., None]
+              & (torch.arange(cfg.Wp, device=pos.device)
+                 == (pos + cfg.WL)[..., None])).to(torch.float32)
+    counts = fold_counts(w_hard, inst["ur"], prep["cvals"], cfg.W)
+    counts = torch.where(gap_zone[..., None], counts, 0.0)
+
+    gl = inst["gap_len"][:, None]
+    end = pos + inst["u_len"]
+    lrc0 = accept & (pos < 0) & (end > 0)
+    lrc1 = accept & (pos < gl) & (end - gl > 0)
+    return dict(counts=counts, accept=accept, pos=pos,
+                left_right_check=torch.stack([lrc0.any(1), lrc1.any(1)], 1),
+                umax_left=torch.where(lrc0, -pos, 0).max(dim=1).values,
+                umax_right=torch.where(lrc1, end - gl, 0).max(dim=1).values,
+                left_start_zero=(accept & (pos == 0)).any(1),
+                right_fin_glen=(accept & (end == gl)).any(1),
+                total=inst["u_valid"].sum(1), used=accept.sum(1))
 
 
 def finalize_partial_instance(cfg: FillConfig, inst, model, best_string,
@@ -676,9 +1151,7 @@ def finalize_partial_instance(cfg: FillConfig, inst, model, best_string,
     pr = inst["pr"]
     I, P, L = pr.shape
     gap_zone = _gap_zone(inst, cfg)
-    bws = torch.full((I, cfg.W), 4, dtype=torch.int8, device=pr.device)
-    bws[:, cfg.WL : cfg.WL + cfg.max_gap_len] = best_string
-    gap_string = torch.where(gap_zone, bws, inst["tmpl"])
+    gap_string = _best_gap_string(cfg, inst, best_string, gap_zone)
     jv_count, jv_score = _read_masks(inst, cfg)
     p0l, p0r = _band_starts(cfg, inst["gap_len"])
     leg1 = _legal_partial_band(cfg, inst, p0l, True)
@@ -714,10 +1187,15 @@ def finalize_partial_instance(cfg: FillConfig, inst, model, best_string,
 
 
 def finalize_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
-                            best_strings, saved_l, saved_r) -> dict:
-    return finalize_partial_instance(
-        cfg, _gather_inst(cfg, gap_arrays, gap_idx, gap_len), model,
-        best_strings, saved_l, saved_r)
+                            best_strings, saved, saved_l, saved_r) -> dict:
+    """Finalize over gathered instances: ``saved`` (I, R) is the unmapped
+    mode's saved-read flags, ``saved_l``/``saved_r`` the partial mode's
+    saved overlap pair."""
+    inst = _gather_inst(cfg, gap_arrays, gap_idx, gap_len)
+    if cfg.partial_mode:
+        return finalize_partial_instance(cfg, inst, model, best_strings,
+                                         saved_l, saved_r)
+    return finalize_unmapped_instance(cfg, inst, model, best_strings, saved)
 
 
 # ---------------------------------------------------------------------------
@@ -728,60 +1206,84 @@ SCAN_COLS = 9  # lik, valid, discont, ucoverf, umaxleftf, umaxrightf,
                # region_perct, bailed, prec
 
 
-def fill_batch_scan(cfg, gap_arrays, gap_idx, gap_len, model):
+def fill_batch_scan(cfg, gap_arrays, gap_idx, gap_len, model,
+                    finalize_flag: bool = True,
+                    large_break: bool | None = None):
     """Scan instances -> packed (IB, SCAN_COLS) f32 replay scalars."""
-    out = fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model)
+    out = fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
+                              finalize_flag, large_break)
     z = torch.zeros_like(out["likelihood"])
-    cols = [out["likelihood"], out["valid"].to(torch.float32)] + [z] * 6 \
-        + [out["prec"].to(torch.float32)]
+    cols = [out["likelihood"]] + [
+        out[k].to(torch.float32) if k in out else z
+        for k in ("valid", "discont", "ucoverf", "umaxleftf", "umaxrightf",
+                  "region_perct", "bailed", "prec")]
     return torch.stack(cols, dim=1)
 
 
-def fill_batch_full_packed(cfg, gap_arrays, gap_idx, gap_len, model):
+def fill_batch_full_packed(cfg, gap_arrays, gap_idx, gap_len, model,
+                           finalize_flag: bool = True,
+                           large_break: bool | None = None):
     """Winner/original-length re-run -> packed [consensus (maxG), accept
-    (P), pos (P), saved_l, saved_r, region_perct, bailed, prec]."""
-    out = fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model)
-    z = torch.zeros_like(out["likelihood"])[:, None]
+    (NR), pos (NR), saved_l, saved_r, region_perct, bailed, prec], NR = P
+    (partial) or R (unmapped)."""
+    out = fill_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
+                              finalize_flag, large_break)
+    z = torch.zeros_like(out["likelihood"])
+    cols = [out[k].to(torch.float32) if k in out else z
+            for k in ("saved_l", "saved_r", "region_perct", "bailed",
+                      "prec")]
     return torch.cat([out["consensus"].to(torch.float32),
                       out["accept"].to(torch.float32),
                       out["pos"].to(torch.float32),
-                      out["saved_l"].to(torch.float32)[:, None],
-                      out["saved_r"].to(torch.float32)[:, None], z, z,
-                      out["prec"].to(torch.float32)[:, None]], dim=1)
+                      torch.stack(cols, dim=1)], dim=1)
+
+
+def _layout(fields) -> dict:
+    o, at = {}, 0
+    for name, width in fields:
+        o[name] = (at, at + width)
+        at += width
+    o["_total"] = at
+    return o
 
 
 def full_packed_layout(cfg: FillConfig) -> dict:
-    o, at = {}, 0
-    for name, width in (("consensus", cfg.max_gap_len), ("accept", cfg.P),
-                        ("pos", cfg.P), ("saved_l", 1), ("saved_r", 1),
-                        ("region_perct", 1), ("bailed", 1), ("prec", 1)):
-        o[name] = (at, at + width)
-        at += width
-    o["_total"] = at
-    return o
+    """Column offsets of ``fill_batch_full_packed``'s output."""
+    nr = cfg.P if cfg.partial_mode else cfg.R
+    return _layout((("consensus", cfg.max_gap_len), ("accept", nr),
+                    ("pos", nr), ("saved_l", 1), ("saved_r", 1),
+                    ("region_perct", 1), ("bailed", 1), ("prec", 1)))
 
 
 def finalize_batch_packed(cfg, gap_arrays, gap_idx, gap_len, model,
-                          best_strings, saved_l, saved_r):
+                          best_strings, saved, saved_l, saved_r):
     """Finalize pass -> packed [counts gap-zone (maxG*5), qual gap-zone
-    (maxG*5), accept (P), pos (P), used]."""
+    (maxG*5, partial only), accept (NR), pos (NR), scalars]."""
     out = finalize_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
-                                  best_strings, saved_l, saved_r)
+                                  best_strings, saved, saved_l, saved_r)
     ib = gap_idx.shape[0]
     zone = slice(cfg.WL, cfg.WL + cfg.max_gap_len)
-    return torch.cat([out["counts"][:, zone].reshape(ib, -1),
-                      out["qual"][:, zone].reshape(ib, -1),
-                      out["accept"].to(torch.float32),
-                      out["pos"].to(torch.float32),
-                      out["used"].to(torch.float32)[:, None]], dim=1)
+    parts = [out["counts"][:, zone].reshape(ib, -1)]
+    if cfg.partial_mode:
+        parts.append(out["qual"][:, zone].reshape(ib, -1))
+    parts += [out["accept"].to(torch.float32), out["pos"].to(torch.float32)]
+    if not cfg.partial_mode:
+        parts.append(out["left_right_check"].to(torch.float32))
+        parts += [out[k].to(torch.float32)[:, None]
+                  for k in ("umax_left", "umax_right", "left_start_zero",
+                            "right_fin_glen")]
+    parts.append(out["used"].to(torch.float32)[:, None])
+    return torch.cat(parts, dim=1)
 
 
 def finalize_packed_layout(cfg: FillConfig) -> dict:
-    o, at = {}, 0
-    for name, width in (("counts", cfg.max_gap_len * 5),
-                        ("qual", cfg.max_gap_len * 5), ("accept", cfg.P),
-                        ("pos", cfg.P), ("used", 1)):
-        o[name] = (at, at + width)
-        at += width
-    o["_total"] = at
-    return o
+    nr = cfg.P if cfg.partial_mode else cfg.R
+    fields = [("counts", cfg.max_gap_len * 5)]
+    if cfg.partial_mode:
+        fields.append(("qual", cfg.max_gap_len * 5))
+    fields += [("accept", nr), ("pos", nr)]
+    if not cfg.partial_mode:
+        fields += [("left_right_check", 2), ("umax_left", 1),
+                   ("umax_right", 1), ("left_start_zero", 1),
+                   ("right_fin_glen", 1)]
+    return _layout(fields + [("used", 1)])

@@ -2,11 +2,15 @@
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one only where it launched its CUDA kernel (never for the plain
-version, which it runs for CPU tensors).
+version, which it runs for CPU tensors).  ``LAUNCHES_BY_SHAPE`` splits the
+counts of K1-K4 by (kernel, reads, positions) of the launch.
 """
+
+from collections import Counter
 
 LAUNCHES = {"cascade": 0, "band_soft": 0, "band_hard": 0, "fold": 0,
             "align_score": 0}
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 
 def reset_launches() -> None:
@@ -15,6 +19,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_BY_C.clear()
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def require_cuda(t, what: str) -> None:

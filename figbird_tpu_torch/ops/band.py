@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, require_cuda
+from . import LAUNCHES, LAUNCHES_BY_SHAPE, require_cuda
 from ._build import check, launcher, stream
 
 
@@ -202,6 +202,7 @@ def band_score_soft(codes: torch.Tensor, valid: torch.Tensor,
         stream(codes.device))
     check(err, "band_score_soft")
     LAUNCHES["band_soft"] += 1
+    LAUNCHES_BY_SHAPE["band_soft", P, Wp] += 1
     return out
 
 
@@ -224,6 +225,7 @@ def band_score(codes: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
         P, L, R, Wp, stream(codes.device))
     check(err, "band_score")
     LAUNCHES["band_hard"] += 1
+    LAUNCHES_BY_SHAPE["band_hard", P, Wp] += 1
     return out
 
 
@@ -256,6 +258,7 @@ def band_score_hard(codes: torch.Tensor, valid: torch.Tensor,
         L, R, Wp, stream(codes.device))
     check(err, "band_score_hard")
     LAUNCHES["band_hard"] += 1
+    LAUNCHES_BY_SHAPE["band_hard", P, Wp] += 1
     return out
 
 
@@ -282,6 +285,7 @@ def fold_counts(weights: torch.Tensor, codes: torch.Tensor,
         I, P, L, Pw, W, stream(weights.device))
     check(err, "fold_counts")
     LAUNCHES["fold"] += 1
+    LAUNCHES_BY_SHAPE["fold", P, Pw] += 1
     return out
 
 
@@ -311,4 +315,5 @@ def cascade_counts(lw: torch.Tensor, codes: torch.Tensor, vals: torch.Tensor,
         P, L, Pw, W, m, shift, cut, stream(lw.device))
     check(err, "cascade_counts")
     LAUNCHES["cascade"] += 1
+    LAUNCHES_BY_SHAPE["cascade", P, Pw] += 1
     return out

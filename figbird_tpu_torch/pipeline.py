@@ -1,10 +1,13 @@
-"""Partial-mode pipeline iteration (``figbird_tpu/pipeline.py``).
+"""Pipeline iterations (``figbird_tpu/pipeline.py``), on one device.
 
 One iteration = local-align the minimum-insert library against the current
 genome, pair, learn the insert/error model on the device, triage clipped
-reads into partial bundles, run the batched gap-fill EM and splice.  The
-unmapped mode, the iteration schedule, the mesh and multi-host options are
-later slices of the port and raise ``NotImplementedError``.
+reads into partial bundles, run the batched gap-fill EM and splice.  An
+unmapped ('u') iteration also aligns its library end to end against the
+gap-bearing scaffolds, relearns the model from that pass's pairs and fills
+from the one-anchored pairs' free mates.  The iteration schedule, the
+artifacts, the mesh and multi-host options are later slices of the port and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import torch
 
 from . import dtypes
 from .align import pairing
-from .align.core import Aligner, AlignParams
+from .align.core import Aligner, AlignParams, e2e_params
 from .align.index import build_index
+from .config import INSERT_FRAC
 from .fill.driver import fill_gaps
 from .model import error_model
 from .ops import entry_device
@@ -26,7 +30,7 @@ from .triage import assign
 from .utils import trace
 
 _LATER = ("is not ported yet; see ROADMAP.md, queue 1 (the port runs "
-          "partial-mode iterations on one device)")
+          "single iterations on one device)")
 
 
 @dataclass
@@ -228,13 +232,19 @@ class Pipeline:
         self._align_seconds = 0.0
         self.timer = trace.StageTimer()
 
-    def _align_lib(self, genome, lib_i: int, max_insert: int):
+    def _align_lib(self, genome, lib_i: int, max_insert: int,
+                   end_to_end: bool = False):
+        """``end_to_end=True`` is the unmapped-pass preset: default (not
+        local) bowtie2 semantics with the maxD2 insert bound — no soft
+        clips, so the pass's model set excludes clipped reads."""
         r1, r2 = self.libs[lib_i]
         t0 = time.time()
         idx = build_index(genome, k=15, device_tables=True)
         self.timer.add("index_build", time.time() - t0)
+        params = e2e_params(self.align_params) if end_to_end \
+            else self.align_params
         # model learning runs on the device: no mismatch-mask copy
-        params = replace(self.align_params, want_mism=False)
+        params = replace(params, want_mism=False)
         t0 = time.time()
         al = Aligner(idx, params, device=self.device, **self.aligner_kwargs)
         self.timer.add("aligner_init", time.time() - t0)
@@ -271,10 +281,68 @@ class Pipeline:
         clipped = (pt.clip_start > 0) | (pt.clip_end > 0)
         return ~(pt.concordant & ~clipped[:, 0] & ~clipped[:, 1])
 
+    def _unmapped_pass(self, genome, gaps, bundles, lib_i: int, model,
+                       partial_len: int):
+        """The 'u' iteration's second pass: align library ``lib_i`` end to
+        end (against the gap-bearing scaffolds only, unless it is a jump
+        library), relearn the model from that pass's own pairs (else fall
+        back to iteration 1's snapshot), and add the one-anchored pairs'
+        free mates to ``bundles`` in place.  Returns (model, pair table)."""
+        cfgp = self.cfg.parameters
+        t_lib = self.cfg.read_pairs[lib_i]
+        maxD2 = int(t_lib.avg_insert_size * INSERT_FRAC)
+        genome2, gaps2, remap = genome, gaps, None
+        if not t_lib.is_jump:
+            genome2, remap = genome.reduce_to_gapped()
+            gaps2 = genome2.find_gaps()
+        with self.timer.stage("align_e2e", 2 * len(self.libs[lib_i][0])):
+            idx2, b1, b2, pt2, al2 = self._align_lib(
+                genome2, lib_i, maxD2, end_to_end=True)
+        self.last_alignments_e2e = (b1, b2)
+        with self.timer.stage("model_e2e"):
+            # the model relearn from the end-to-end pass's own pairs; its
+            # measured insert mean drives the triage's insert geometry
+            read_mean = float(t_lib.avg_insert_size)
+            m2, nm2 = _learn_model(
+                idx2, pt2, b1, b2, *self.libs[lib_i], genome2.lengths,
+                partial_flag=False, partial_len=partial_len, aligner=al2,
+                input_mean=(t_lib.avg_insert_size if cfgp.set_inputmean
+                            else 0.0))
+            if m2 is not None and nm2 >= self.min_model_pairs:
+                model = m2
+                if maxD2 > 250:
+                    read_mean = float(m2.insert_mean)
+            elif self.saved_model is not None:
+                # too few pairs: iteration 1's snapshot
+                model = self._refinalize(self.saved_model, genome, False,
+                                         partial_len)
+        with self.timer.stage("triage_e2e"):
+            tri2 = assign.Triage(gaps2, max_distance=maxD2,
+                                 read_mean=read_mean, is_jump=t_lib.is_jump)
+            tri2.collect_unmapped(pt2, *self.libs[lib_i])
+        # the reduced genome keeps whole gap-bearing contigs in order, so
+        # its gap list is the full one with contigs renumbered: check that
+        if remap is not None:
+            if len(gaps2) != len(gaps):
+                raise RuntimeError(f"reduced genome gap count {len(gaps2)} "
+                                   f"!= full genome {len(gaps)}")
+            for g2, g in zip(gaps2, gaps):
+                if (int(remap[g2.contig]) != g.contig or g2.start != g.start
+                        or g2.length != g.length):
+                    raise RuntimeError(
+                        "reduced<->full gap correspondence broken: reduced "
+                        f"({g2.contig},{g2.start},{g2.length}) -> contig "
+                        f"{int(remap[g2.contig])} vs full ({g.contig},"
+                        f"{g.start},{g.length})")
+        for bu, b in zip(tri2.bundles, bundles):
+            b.u_seq, b.u_pos, b.u_rev = bu.u_seq, bu.u_pos, bu.u_rev
+        return model, pt2
+
     def run_iteration(self, mode: str, lib_i: int) -> IterationStats:
-        """One partial-mode ('p') filling iteration."""
-        if mode != "p":
-            raise NotImplementedError(f"mode {mode!r} " + _LATER)
+        """One filling iteration; mode 'p' (partial) or 'u' (unmapped, on
+        library ``lib_i``)."""
+        if mode not in ("p", "u"):
+            raise ValueError(f"mode {mode!r}: expected 'p' or 'u'")
         self.itr += 1
         t0 = time.time()
         cfgp = self.cfg.parameters
@@ -294,40 +362,55 @@ class Pipeline:
         r1, r2 = self.libs[mi]
         with self.timer.stage("model"):
             if self.itr > 1 and self.saved_model is not None:
-                model = self._refinalize(self.saved_model, genome, True,
-                                         partial_len)
+                # iterations > 1 use iteration 1's snapshot (the reduced
+                # read set would starve the model); unmapped iterations
+                # replace it with the end-to-end pass's model below
+                model = self._refinalize(self.saved_model, genome,
+                                         mode == "p", partial_len)
                 n_model = self.saved_n_model
             else:
                 model, n_model = _learn_model(
                     idx, pt, a1, a2, r1, r2, genome.lengths,
-                    partial_flag=True, partial_len=partial_len, aligner=al,
-                    input_mean=(m_lib.avg_insert_size
-                                if cfgp.set_inputmean else 0.0))
+                    partial_flag=(mode == "p"), partial_len=partial_len,
+                    aligner=al, input_mean=(m_lib.avg_insert_size
+                                            if cfgp.set_inputmean else 0.0))
                 if model is None or n_model < self.min_model_pairs:
                     model = self.saved_model
                     if model is None:
                         raise RuntimeError(
                             "no model could be learned (too few pairs)")
-                    model = self._refinalize(model, genome, True,
+                    model = self._refinalize(model, genome, mode == "p",
                                              partial_len)
                     n_model = self.saved_n_model
                 elif self.saved_model is None:
                     self.saved_model = model  # the iteration-1 snapshot
                     self.saved_n_model = n_model
-        self.last_model = model
 
         with self.timer.stage("triage"):
             tri = assign.Triage(gaps, max_distance=maxD1,
                                 read_mean=m_lib.avg_insert_size,
                                 is_jump=False)
             tri.collect_partial(pt, r1, r2, align1=a1, align2=a2)
+        bundles = tri.bundles
+        n_pairs = len(r1)
         reductions = {}
         if self.use_read_reduction and mi not in self._reduced:
             reductions[mi] = self._reduction_keep(pt)
+        self.last_alignments = (a1, a2)
+
+        if mode == "u":
+            model, pt2 = self._unmapped_pass(genome, gaps, bundles, lib_i,
+                                             model, partial_len)
+            n_pairs += len(self.libs[lib_i][0])
+            if (self.use_read_reduction and lib_i != mi
+                    and lib_i not in self._reduced):
+                reductions[lib_i] = self._reduction_keep(pt2)
+        self.last_model = model
 
         with self.timer.stage("fill", len(gaps)):
-            res = fill_gaps(genome, gaps, tri.bundles, model,
-                            partial_mode=True, partial_len=partial_len,
+            res = fill_gaps(genome, gaps, bundles, model,
+                            partial_mode=(mode == "p"),
+                            partial_len=partial_len,
                             neg_overlap=cfgp.gaplen_negative_overlap,
                             device=self.device, **self.fill_kwargs)
         with self.timer.stage("splice"):
@@ -338,7 +421,6 @@ class Pipeline:
         self.result.genome = new_genome
         self.result.gap_history.append((gaps, res.gap_strings, res.gaptofill))
         self.last_fill_stats = res.stats
-        self.last_alignments = (a1, a2)
 
         for i, keep in reductions.items():
             ra, rb = self.libs[i]
@@ -346,7 +428,7 @@ class Pipeline:
             self._reduced.add(i)
 
         stats = IterationStats(
-            itr=self.itr, mode=mode, lib=lib_i, n_pairs=len(r1),
+            itr=self.itr, mode=mode, lib=lib_i, n_pairs=n_pairs,
             n_model=n_model, gaps=len(gaps), filled=res.stats["filled"],
             n_before=n_before, n_after=n_after, seconds=time.time() - t0)
         self.result.iterations.append(stats)

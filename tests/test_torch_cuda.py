@@ -307,3 +307,65 @@ def test_score_candidates_wide_state_bit_equal(dev):
     want = align_score.score_candidates_plain(*args)
     for k in ("local", "e2e", "start", "end", "n_mis"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("m", [None, 6])
+@pytest.mark.parametrize("R", [1024, 3072])
+def test_counts_unmapped_full_width(dev, R, m):
+    """K4 and K1 at the unmapped mode's full width: R reads (the 1,024 and
+    3,072 read buckets) at every position of W = L + 512 + L; zeros equal,
+    repeats bit-equal."""
+    L = 101
+    _counts_on_card(dev, 34, 2, R, L + 512, L, 2 * L + 512, m, False)
+
+
+def test_band_hard_reverse_strand_full_width(dev):
+    """K3's gap-string form with the reverse strand's factors (the unmapped
+    hard pass scores every read with both strands' factors) at full width,
+    bit-equal to the K form, and K2 beside it."""
+    L, Wp = 101, 101 + 512
+    codes, valid, probs, eprobs, e_pos, _, g, a, b, ln_et = _band_inputs(
+        dev, 17, 2, 1024, L, Wp)
+    a, b, e_pos = a.flip(0), b.flip(0), e_pos.flip(0)
+    got, once = _launched("band_hard", lambda: band.band_score_hard(
+        codes, valid, g, a, b, ln_et, Wp))
+    assert once
+    assert torch.equal(got, band.band_score(
+        codes, valid, band.hard_K(g, a, b, ln_et), Wp))
+    _close(got, band.band_score_hard_plain(codes, valid, g, a, b, ln_et, Wp),
+           1e-5, 1e-4)
+    got, once = _launched("band_soft", lambda: band.band_score_soft(
+        codes, valid, probs, eprobs, e_pos, Wp))
+    assert once
+    _close(got, band.band_score_soft_plain(codes, valid, probs, eprobs,
+                                           e_pos, Wp), 1e-5, 1e-3)
+
+
+def test_e2e_align_batch_card_equals_cpu(dev):
+    """The end-to-end preset's ``align_batch`` on the card equals the same
+    on the CPU: every output and the packed words."""
+    from figbird_tpu_torch.align import core
+    from figbird_tpu_torch.align.index import build_device_tables, \
+        build_index
+    from figbird_tpu_torch.simulate import SimConfig, simulate
+
+    sim = simulate(SimConfig(genome_len=30_000, n_contigs=2, n_gaps=4,
+                             read_len=101, coverage=6, indel_rate=0.05,
+                             seed=11))
+    idx = build_index(sim.draft, k=15, device_tables=True)
+    p = core.e2e_params(core.AlignParams(want_mism=True))
+    reads, lens = sim.reads1.seq[:2048], sim.reads1.length[:2048]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        tables, _ = build_device_tables(idx.flat, idx.k, idx.prefix_bases, d)
+        out = core.align_batch(
+            torch.as_tensor(core.as_rows(idx.flat), device=d),
+            len(idx.flat), tables, torch.as_tensor(reads, device=d),
+            torch.as_tensor(lens.astype(np.int32), device=d), idx.k, p,
+            2 * (idx.k - idx.prefix_bases))
+        outs.append({k: v.cpu() for k, v in out.items()})
+    gpu, cpu = outs
+    assert sorted(gpu) == sorted(cpu)
+    for k in cpu:
+        assert torch.equal(gpu[k], cpu[k]), k
+    assert not cpu["aligned"].all() and cpu["aligned"].any()

@@ -176,10 +176,12 @@ def test_soft_counts_banded_select_levels(setup, depth):
 
 
 def test_unported_configs_raise(setup):
-    """The unmapped mode belongs to a later slice."""
+    """Both modes are ported; a configuration that sets both mode flags, or
+    neither, is refused."""
     cfg, insts, marr = setup
-    bad = replace(convert.fill_config(cfg), partial_mode=False,
-                  unmapped_mode=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_em.fill_batch(bad, convert.to_tensors(insts),
-                        convert.to_tensors(marr))
+    for partial, unmapped in ((True, True), (False, False)):
+        bad = replace(convert.fill_config(cfg), partial_mode=partial,
+                      unmapped_mode=unmapped)
+        with pytest.raises(ValueError, match="exactly one"):
+            t_em.fill_batch(bad, convert.to_tensors(insts),
+                            convert.to_tensors(marr))

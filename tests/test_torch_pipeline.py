@@ -50,11 +50,11 @@ class _Spy:
         self.args, self.kwargs = args, kwargs
         return self.fn(*args, **kwargs)
 
-    def again(self, n_gaps: int, **over):
-        """The kept call on its first ``n_gaps`` gaps, with other keyword
+    def again(self, which: slice, **over):
+        """The kept call on the gaps ``which`` selects, with other keyword
         arguments."""
         genome, gaps, bundles, *rest = self.args
-        return self.fn(genome, gaps[:n_gaps], bundles[:n_gaps], *rest,
+        return self.fn(genome, gaps[which], bundles[which], *rest,
                        **{**self.kwargs, **over})
 
 
@@ -144,14 +144,29 @@ def test_precision_tiers_equal(default_runs, tier):
     on the first two gaps of the default run's own fill inputs, each against
     the reference's same setting."""
     _, _, _, _, r_spy, t_spy = default_runs
-    ref = r_spy.again(2, exact_soft=tier)
-    got = t_spy.again(2, exact_soft=tier)
+    ref = r_spy.again(slice(2), exact_soft=tier)
+    got = t_spy.again(slice(2), exact_soft=tier)
     _assert_fills_equal(got.gap_strings, got.gaptofill, ref.gap_strings,
                         ref.gaptofill, n=2)
     assert got.stats["scan_instances"] == ref.stats["scan_instances"] > 0
     for k in ("esc_exact_scan", "esc_exact_rerun"):
         assert got.stats.get(k, 0) == ref.stats.get(k, 0), k
         assert (got.stats.get(k, 0) > 0) == (tier == "auto"), k
+
+
+def test_reference_exact_partial_equal(default_runs):
+    """``reference_exact=True`` in partial mode (the uncapped length scan and
+    the read-order overlap-bonus enumeration, ``bonus_cap`` = the partial
+    read bucket) on the default run's own fill inputs for its last gap (the
+    shortest: its uncapped scan is 128 lengths, the others' 192-256),
+    against the reference's same setting."""
+    _, _, _, _, r_spy, t_spy = default_runs
+    ref = r_spy.again(slice(5, 6), reference_exact=True)
+    got = t_spy.again(slice(5, 6), reference_exact=True)
+    _assert_fills_equal(got.gap_strings, got.gaptofill, ref.gap_strings,
+                        ref.gaptofill, n=1)
+    # the scan is not capped: more candidates than the capped run's 16
+    assert got.stats["scan_instances"] == ref.stats["scan_instances"] > 16
 
 
 def test_port_runs_without_jax():
