@@ -61,15 +61,33 @@ Phases (every one must pass; none is caught):
    ``reference_exact`` u-iteration, held to the same checks, and the
    number of its gap strings equal to the default's.  ``--profile`` adds
    the default u-iteration under torch.profiler.
+6. schedule — the whole run through the port's CLI on the card: bench.py's
+   frag library and a jump library on the same truth (insert 600 +- 50, 5x,
+   seed 2; scripts/schedule_e2e.py's two-library dataset) written to
+   FASTA/FASTQ with a reference-schema Config.json (default schedule,
+   evaluation on), then ``figbird_tpu_torch.__main__.main([cfg])`` in this
+   process, the launch counts set to 0 just before and read just after:
+   exit 0, the iterations a prefix of the two-library schedule cut only
+   where the N count stopped moving, all five kernels launched, N reduced,
+   filled-base accuracy of the combined gaps (Individual_gaps.txt) >= 0.95,
+   the reference CLI's whole output tree, the final assembly equal to the
+   last iteration's, Result.txt written; walls, stage times, launches by
+   shape, the FASTQ parse and evaluation times printed.  Each row of the
+   kernels line for the p main path also carries the schedule's launches
+   (``schedule_launches``).
 
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
 """
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -854,6 +872,188 @@ def phase_main_unmapped(sim, profile_run: bool):
     return by_shape
 
 
+# ---------------------------------------------------------------- phase 6
+# the two-library schedule (RunFigbird.sh:534-595): frag library 0, jump 1
+TWO_LIB_SCHEDULE = [("p", 0), ("u", 1), ("u", 1), ("p", 0), ("u", 1),
+                    ("p", 0), ("p", 0), ("p", 0)]
+# the reference CLI's progress line of an iteration: (mode, library)
+ITR_LINE = re.compile(r"^# itr \d+ \[([pu]) lib(\d+)\]: \d+ gaps, \d+ "
+                      r"filled, N \d+->\d+ \([\d.]+s\)$")
+
+
+class _Tee:
+    """stderr that also keeps what was written (the CLI's progress
+    lines)."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name, seconds: list):
+    """Replace ``module.name`` by a wrapper that adds each call's seconds to
+    ``seconds`` (the CLI imports it from the module when it runs)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.time() - t0)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def schedule_dataset(sim, out: Path) -> Path:
+    """scripts/schedule_e2e.py's two-library dataset on disk: the frag
+    library is bench.py's, the jump library (insert 600 +- 50, 5x, 0.5%
+    errors, seed 2) is simulated on the same truth; a reference-schema
+    Config.json (default schedule, no flank trim, evaluation against the
+    truth)."""
+    from figbird_tpu_torch.io.fasta import write_fasta
+    from figbird_tpu_torch.io.fastq import write_fastq
+
+    t0 = time.time()
+    simj = simulate.simulate(simulate.SimConfig(
+        genome_len=4_600_000, n_contigs=4, n_gaps=50, read_len=101,
+        insert_mean=600, insert_sd=50, coverage=5.0, error_rate=0.005,
+        seed=2), truth=sim.truth)
+    write_fasta(out / "draft.fa", sim.draft.to_fasta(), width=60)
+    write_fasta(out / "truth.fa", sim.truth.to_fasta(), width=60)
+    pairs = []
+    for tag, s, insert in (("f", sim, 200), ("j", simj, 600)):
+        for m, rb in ((1, s.reads1), (2, s.reads2)):
+            write_fastq(out / f"{tag}{m}.fq", rb)
+        pairs.append({"path_1": str(out / f"{tag}1.fq"),
+                      "path_2": str(out / f"{tag}2.fq"),
+                      "avg_insert_size": insert, "max_read_length": 101})
+    cfg = out / "Config.json"
+    cfg.write_text(json.dumps({
+        "Directory": {"Draft_Genome": str(out / "draft.fa"),
+                      "Output_Folder": str(out),
+                      "Reference_Genome": str(out / "truth.fa")},
+        "Read_Pairs": pairs,
+        "Parameters": {"numthreads": 8, "evaluation": 1, "default": 1,
+                       "trim_len": 0}}, indent=1))
+    log(f"schedule dataset: frag {2 * len(sim.reads1)} + jump "
+        f"{2 * len(simj.reads1)} reads written with the draft, truth and "
+        f"Config.json in {time.time() - t0:.1f}s")
+    return cfg
+
+
+def expected_tree(n_itr: int) -> set:
+    """Every file the reference CLI writes for ``n_itr`` iterations with
+    evaluation on (``figbird_tpu/__main__.py``, ``pipeline.py``)."""
+    files = {"FilledScaffolds_final.fa", "Individual_gaps.txt",
+             "combined_gapstring.txt", "Result.txt", "Temp/gapInfo.txt",
+             "Temp/stat.txt", "Temp/stat2.txt", "Temp/gaploads.txt",
+             "Temp/Ncount.txt", "Temp/combined_gapstring.txt"}
+    for i in range(1, n_itr + 1):
+        files |= {f"Filled_Scaffolds/{i}filledContigs.fa",
+                  f"Individual_gaps/gapout_{i}.txt",
+                  f"Individual_gaps/alignment_{i}.txt"}
+    return files
+
+
+def phase_schedule(sim):
+    """The whole run through the port's CLI on the card (module docstring,
+    phase 6).  Returns the run's launches by kernel."""
+    from figbird_tpu_torch import __main__ as cli
+    from figbird_tpu_torch import evalx, pipeline
+    from figbird_tpu_torch.genome import Genome
+    from figbird_tpu_torch.io import fastq, native
+    from figbird_tpu_torch.io.fasta import read_fasta
+
+    with tempfile.TemporaryDirectory(prefix="figbird_schedule_") as tmp:
+        out = Path(tmp)
+        cfg = schedule_dataset(sim, out)
+        seen = []
+
+        class Seen(pipeline.Pipeline):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                seen.append(self)
+
+        parse_s, eval_s = [], []
+        tee = _Tee(sys.stderr)
+        real = pipeline.Pipeline
+        pipeline.Pipeline = Seen
+        try:
+            with _timed_calls(fastq, "read_fastq", parse_s), \
+                    _timed_calls(evalx, "evaluate_against_reference",
+                                 eval_s), contextlib.redirect_stderr(tee):
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.time()
+                rc = cli.main([str(cfg)])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+        finally:
+            pipeline.Pipeline = real
+        launches = dict(ops.LAUNCHES)
+        by_shape = dict(ops.LAUNCHES_BY_SHAPE)
+        by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
+        assert rc == 0, f"the CLI exited with {rc}"
+        ran = [(m[1], int(m[2])) for m in map(
+            ITR_LINE.match, "".join(tee.parts).splitlines()) if m]
+        pipe, = seen
+        log(f"schedule: CLI wall {wall:.2f}s for {len(ran)} iterations "
+            f"{ran}, FASTQ parse {sum(parse_s):.2f}s over {len(parse_s)} "
+            f"files (native parser {native.get_lib() is not None}), "
+            f"evaluate_against_reference {sum(eval_s):.2f}s")
+        for st in pipe.result.iterations:
+            log(f"schedule itr {st.itr} [{st.mode} lib{st.lib}]: wall "
+                f"{st.seconds:.3f}s, N {st.n_before} -> {st.n_after}, "
+                f"{st.gaps} gaps, {st.filled} filled, {st.n_pairs} pairs")
+        pipe.timer.report(sys.stdout)
+        log(f"schedule launches {launches}; by (kernel, reads, positions) "
+            f"{dict(sorted(by_shape.items()))}; align_score by candidates a "
+            f"read {by_c}")
+        assert ran and ran == TWO_LIB_SCHEDULE[:len(ran)], ran
+        last = pipe.result.iterations[-1]
+        assert len(ran) == len(TWO_LIB_SCHEDULE) \
+            or last.n_after in (0, last.n_before), \
+            f"the schedule stopped after {len(ran)} iterations while N moved"
+        missing = [k for k, n in launches.items() if n == 0]
+        assert not missing, f"kernels not launched by the schedule: {missing}"
+
+        wd = out / "Figbird"
+        draft = Genome.from_fasta(read_fasta(out / "draft.fa"))
+        final = Genome.from_fasta(read_fasta(wd / "FilledScaffolds_final.fa"))
+        assert final.count_n() < draft.count_n(), "N not reduced"
+        rows = (wd / "Individual_gaps.txt").read_text().splitlines()[2:]
+        strings = [dtypes.encode(r.split("\t")[3]) for r in rows]
+        acc = evalx.fill_accuracy_vs_truth(sim.truth, draft.find_gaps(),
+                                           strings)
+        tree = {str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file()}
+        missing = expected_tree(len(ran)) - tree
+        result = (wd / "Result.txt").read_text().splitlines()
+        log(f"schedule: N {draft.count_n()} -> {final.count_n()}, filled-base "
+            f"accuracy of the combined gaps {acc.identity:.4f} "
+            f"({acc.filled_bases}/{acc.total_gap_bases} bases filled, "
+            f"{acc.closed}/{acc.n_gaps} gaps closed at their length), "
+            f"{len(tree)} files in the output tree; Result.txt "
+            f"{dict(zip(result[0].split(), result[1].split()))}")
+        assert acc.identity >= 0.95, f"filled-base accuracy {acc.identity}"
+        assert not missing, f"output tree lacks {sorted(missing)}"
+        assert (wd / "FilledScaffolds_final.fa").read_bytes() == (
+            wd / "Filled_Scaffolds" / f"{len(ran)}filledContigs.fa"
+        ).read_bytes(), "the final assembly differs from the last iteration's"
+    return launches
+
+
 def main():
     t_all = time.time()
     card = phase_device()
@@ -864,8 +1064,10 @@ def main():
     sim = bench_sim()
     launches = phase_main(sim, profile_run)
     u_by_shape = phase_main_unmapped(sim, profile_run)
+    sched = phase_schedule(sim)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["schedule_launches"] = sched[r["name"]]
     rows += u_rows_with_launches(u_rows, u_by_shape)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -5,17 +5,24 @@ iterations with PyTorch — partial mode (align -> pair -> model -> triage ->
 banded EM fill -> splice) and unmapped mode (plus an end-to-end alignment
 pass, a model relearn and the full-window unmapped EM) — at the production
 default (the exact soft-count cascade), and its five Pallas kernels
-rewritten as CUDA C++ kernels for Hopper (``csrc/``, built with ``nvcc`` at first use).  It imports ``torch``
-and never ``jax`` nor anything of ``figbird_tpu``: the numpy host modules it
-needs (``dtypes``, ``genome``, ``config``, ``simulate``, ``io``,
-``model.error_model``, ``align.index``, ``align.pairing``, ``triage.assign``,
-``utils.trace``) are its own copies under the same relative names, and
-:mod:`.convert` carries the reference's objects across for the tests.
+rewritten as CUDA C++ kernels for Hopper (``csrc/``, built with ``nvcc`` at
+first use).  Above the iterations it has the reference's whole run:
+``Pipeline.run`` (the iteration schedule and its N-count gating), the
+output tree of a ``workdir``, ``pipeline.run_from_config`` and the CLI,
+``python -m figbird_tpu_torch Config.json``.  It imports ``torch`` and never
+``jax`` nor anything of ``figbird_tpu``: the numpy host modules it needs
+(``dtypes``, ``genome``, ``config``, ``simulate``, ``combine``, ``evalx``,
+``io``, ``model.error_model``, ``align.index``, ``align.pairing``,
+``triage.assign``, ``fill.draw``, ``utils``) are its own copies under the
+same relative names, and :mod:`.convert` carries the reference's objects
+across for the tests.
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors.  The entry points (``Pipeline``, ``Aligner``,
-``fill_gaps``) run on the card unless the caller passes ``device="cpu"``;
-without a card and without that argument they raise.
+``fill_gaps``, the CLI) run on the card unless the caller passes
+``device="cpu"`` (``--device cpu``); without a card and without that
+argument they raise.  The mesh and multi-host options are not ported yet
+and raise ``NotImplementedError``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -6,8 +6,8 @@ match).  Positions stored in the table are padded-flat coordinates; helpers
 convert to (contig, local_pos).
 
 Host part (numpy): ``KmerIndex`` and ``build_index``, copied from the
-reference without its optional native k-mer sorter (the numpy path gives the
-same table).  Device part: the sorted k-mer table and the prefix buckets,
+reference with its optional native k-mer sorter (:mod:`..io.native`; the
+numpy path gives the same table).  Device part: the sorted k-mer table and the prefix buckets,
 built on the device (reference ``index.py:181-237``).
 """
 
@@ -142,6 +142,20 @@ def build_index(genome: Genome, k: int = 15, pad: int = 256,
             sorted_codes=None, sorted_pos=None, pad=pad,
             prefix_bases=_prefix_bases_for(n_valid, k))
         return idx
+
+    # native C++ fast path: rolling codes + sort over the padded flat array
+    # (N padding between contigs invalidates boundary-spanning windows)
+    if k <= 15:
+        from ..io.native import native_kmer_table
+
+        res = native_kmer_table(flat, k)
+        if res is not None:
+            codes32, pos32 = res
+            return KmerIndex(
+                k=k, flat=flat, offsets=offsets, contig_lengths=lens,
+                sorted_codes=codes32.astype(np.int64),
+                sorted_pos=pos32.astype(np.int64), pad=pad,
+            )
 
     code_chunks: list[np.ndarray] = []
     pos_chunks: list[np.ndarray] = []

@@ -5,8 +5,9 @@ Replaces the per-record C stdio parsing scattered through the reference
 :class:`ReadBatch`: a dense ``(n, max_len)`` int8 matrix padded with N plus a
 length vector — the layout every downstream device kernel consumes.
 
-Copy of ``figbird_tpu/io/fastq.py`` without its optional native parser: the
-numpy parser below gives the same batch.
+Copy of ``figbird_tpu/io/fastq.py``.  A native C++ fast path
+(``native/figbird_native.cpp``, through :mod:`.native`) is used when the
+shared library builds; the numpy fallback gives the same batch.
 """
 
 from __future__ import annotations
@@ -69,7 +70,19 @@ class ReadBatch:
 
 def read_fastq(path: str | Path, max_len: int | None = None, with_qual: bool = True,
                limit: int | None = None) -> ReadBatch:
-    """Parse a FASTQ file (4-line records) into a ReadBatch."""
+    """Parse a FASTQ file (4-line records) into a ReadBatch.
+
+    Uses the native C++ parser (native/figbird_native.cpp) when built; falls
+    back to the numpy path below.
+    """
+    if limit is None:
+        from .native import native_read_fastq
+
+        nb = native_read_fastq(str(path), max_len)
+        if nb is not None:
+            if not with_qual:
+                nb.qual = None
+            return nb
     data = Path(path).read_bytes()
     lines = data.split(b"\n")
     # records: id, seq, +, qual

@@ -1,19 +1,23 @@
-"""Pipeline iterations (``figbird_tpu/pipeline.py``), on one device.
+"""The pipeline (``figbird_tpu/pipeline.py``), on one device.
 
 One iteration = local-align the minimum-insert library against the current
 genome, pair, learn the insert/error model on the device, triage clipped
 reads into partial bundles, run the batched gap-fill EM and splice.  An
 unmapped ('u') iteration also aligns its library end to end against the
 gap-bearing scaffolds, relearns the model from that pass's pairs and fills
-from the one-anchored pairs' free mates.  The iteration schedule, the
-artifacts, the mesh and multi-host options are later slices of the port and
-raise ``NotImplementedError``.
+from the one-anchored pairs' free mates.  ``Pipeline.run`` is the iteration
+schedule (RunFigbird.sh:534-775) gated on the remaining-N count, and with a
+``workdir`` every iteration writes the reference's artifacts
+(``Temp/gapInfo.txt``, ``Individual_gaps/gapout_<n>.txt``,
+``Filled_Scaffolds/<n>filledContigs.fa``, ...).  The mesh and multi-host
+options are a later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -22,15 +26,20 @@ from . import dtypes
 from .align import pairing
 from .align.core import Aligner, AlignParams, e2e_params
 from .align.index import build_index
+from .combine import combine_gap_history, write_individual_gaps
 from .config import INSERT_FRAC
+from .fill.draw import render_gap, write_draw_file
 from .fill.driver import fill_gaps
+from .genome import Genome
+from .io.fasta import read_fasta, write_fasta
+from .io.fastq import read_fastq
 from .model import error_model
 from .ops import entry_device
 from .triage import assign
 from .utils import trace
 
-_LATER = ("is not ported yet; see ROADMAP.md, queue 1 (the port runs "
-          "single iterations on one device)")
+_LATER = ("is not ported yet; see ROADMAP.md, queue 1 item 11 (the port "
+          "runs on one device)")
 
 
 @dataclass
@@ -53,6 +62,12 @@ class PipelineResult:
     genome: object
     iterations: list = field(default_factory=list)
     gap_history: list = field(default_factory=list)  # per itr (gaps, strings, skips)
+    combined: list = field(default_factory=list)  # CombinedGap per orig gap
+
+    @property
+    def fillmore(self) -> bool:
+        return self.iterations[-1].n_after not in (0, self.iterations[-1].n_before) \
+            if self.iterations else True
 
 
 def _oriented_rows(batch, align: dict, rows: np.ndarray) -> np.ndarray:
@@ -198,7 +213,9 @@ class Pipeline:
     """Stateful pipeline over an in-memory genome + read libraries, on one
     device.  ``device=None`` is the card, and an error where there is none;
     ``device="cpu"`` asks for the CPU, where the kernels' plain versions
-    run."""
+    run.  ``workdir``: where each iteration writes its artifacts and
+    ``run`` the combined gaps and the final assembly (the output tree of
+    RunFigbird.sh)."""
 
     def __init__(self, cfg, genome, libs, align_params: AlignParams =
                  AlignParams(), min_model_pairs: int = 500,
@@ -206,9 +223,9 @@ class Pipeline:
                  fill_kwargs: dict | None = None,
                  aligner_kwargs: dict | None = None, device=None,
                  workdir=None, mesh=None, distributed: bool | None = None):
-        if workdir is not None or mesh is not None or distributed:
+        if mesh is not None or distributed:
             raise NotImplementedError(
-                "artifacts, mesh and multi-host execution " + _LATER)
+                "mesh and multi-host execution " + _LATER)
         cfg.validate()
         self.cfg = cfg
         self.device = entry_device(device)
@@ -218,6 +235,10 @@ class Pipeline:
             if lib.is_reverse:  # RC both files of RF libraries
                 r1, r2 = r1.revcomp(), r2.revcomp()
             self.libs.append((r1, r2))
+        self.workdir = Path(workdir) if workdir else None
+        if self.workdir:
+            for d in ("Filled_Scaffolds", "Individual_gaps", "Temp"):
+                (self.workdir / d).mkdir(parents=True, exist_ok=True)
         self.align_params = align_params
         self.min_model_pairs = min_model_pairs
         self.fill_kwargs = fill_kwargs or {}
@@ -427,9 +448,129 @@ class Pipeline:
             self.libs[i] = (ra.take(keep), rb.take(keep))
             self._reduced.add(i)
 
+        if self.workdir:
+            self._write_artifacts(gaps, res, new_genome, genome)
+
         stats = IterationStats(
             itr=self.itr, mode=mode, lib=lib_i, n_pairs=n_pairs,
             n_model=n_model, gaps=len(gaps), filled=res.stats["filled"],
             n_before=n_before, n_after=n_after, seconds=time.time() - t0)
         self.result.iterations.append(stats)
         return stats
+
+    def _write_artifacts(self, gaps, res, new_genome, old_genome):
+        wd = self.workdir
+        with open(wd / "Temp" / "gapInfo.txt", "w") as fh:
+            for g in gaps:
+                fh.write(f"{g.contig}\t{g.start}\t{g.length}\n")
+        # interop stat files (Preprocess.cpp:2624-2629; FillGaps gaploads):
+        # totalCount unCount maxReadLength MAX_FRAGMENT_SIZE; per-gap
+        # gaptofill/perfect-read flags; the bucket assignment replaces the
+        # thread loads
+        mlib = self.cfg.read_pairs[self.cfg.min_isz_index]
+        n_reads = 2 * sum(len(a) for a, _ in self.libs)
+        (wd / "Temp" / "stat.txt").write_text(
+            f"{n_reads} 0 {mlib.max_read_length} "
+            f"{max(20000, 2 * mlib.avg_insert_size + 1)}")
+        # gaptofill, perfectread_gap, perfectread_gaplen (Preprocess.cpp:
+        # 2626-2629) — the MIM flags from plan_gaps/the banded tier
+        mim = res.mim if res.mim is not None else np.zeros((len(gaps), 2),
+                                                           np.int64)
+        with open(wd / "Temp" / "stat2.txt", "w") as fh:
+            for i, g in enumerate(gaps):
+                fh.write(f"{int(res.gaptofill[i])}\t{int(mim[i, 0])}\t"
+                         f"{int(mim[i, 1])}\n")
+        with open(wd / "Temp" / "gaploads.txt", "w") as fh:
+            shapes = res.stats.get("bucket_shapes", {})
+            fh.write(f"{len(shapes)}\n")
+            for key, cnt in shapes.items():
+                fh.write(f"{key}\t{cnt}\n")
+        if res.placements is not None:
+            recs = []
+            for i, (g, s) in enumerate(zip(gaps, res.gap_strings)):
+                pl = res.placements[i]
+                if not pl:
+                    continue
+                contig = old_genome.contigs[g.contig]
+                lf = contig[max(g.start - 30, 0) : g.start]
+                rf = contig[g.start + g.length : g.start + g.length + 30]
+                recs.append(render_gap(i, g, s, pl, lf, rf))
+            write_draw_file(
+                wd / "Individual_gaps" / f"alignment_{self.itr}.txt", recs)
+        with open(wd / "Individual_gaps" / f"gapout_{self.itr}.txt", "w") as fh:
+            for i, (g, s) in enumerate(zip(gaps, res.gap_strings)):
+                seq = dtypes.decode(s) if len(s) else ""
+                fh.write(f"{i}\t{g.contig}\t{g.start}\t{g.length}\t{len(s)}\t{seq}\n")
+        write_fasta(wd / "Filled_Scaffolds" / f"{self.itr}filledContigs.fa",
+                    new_genome.to_fasta())
+        fillmore = 0 if new_genome.count_n() == 0 else 1
+        (wd / "Temp" / "Ncount.txt").write_text(str(fillmore))
+
+    def run(self, max_iterations: int | None = None) -> PipelineResult:
+        """Full schedule (RunFigbird.sh:534-775)."""
+        cfg = self.cfg
+        libs = cfg.read_pairs
+        done = 0
+        budget = max_iterations or 16
+
+        def do(mode, lib_i) -> bool:
+            nonlocal done
+            if done >= budget:
+                return False
+            self.run_iteration(mode, lib_i)
+            done += 1
+            return self.result.fillmore
+
+        if cfg.parameters.default == 1:
+            frag = [i for i, l in enumerate(libs) if not l.is_jump]
+            jump = [i for i, l in enumerate(libs) if l.is_jump]
+            if len(libs) == 2 and len(frag) == 1 and len(jump) == 1:
+                # two-lib special case (534-595): 1p, 2u, 1p, 1u, 3p
+                seq = ([("p", frag[0])] + [("u", jump[0])] * 2
+                       + [("p", frag[0])] + [("u", jump[0])]
+                       + [("p", frag[0])] * 3)
+            else:
+                p_libs = frag if frag else jump
+                seq = []
+                for i in jump:
+                    seq += [("u", i)] * 2
+                for i in p_libs:
+                    seq += [("p", i)] * 2
+                for i in jump:
+                    seq += [("u", i)]
+                for i in p_libs:
+                    seq += [("p", i)] * 3
+        else:
+            order = sorted(range(len(libs)), key=lambda i: libs[i].serial_num)
+            seq = []
+            for i in order:
+                for o in libs[i].order:
+                    n = (libs[i].num_itr_partial if o == "p"
+                         else libs[i].num_itr_unmapped)
+                    seq += [(o, i)] * n
+
+        for mode, lib_i in seq:
+            if not do(mode, lib_i):
+                break
+
+        # final combine + copy (RunFigbird.sh:777-781, CombineGaps.cpp)
+        self.result.combined = combine_gap_history(self.result.gap_history)
+        if self.workdir:
+            write_individual_gaps(self.workdir / "Individual_gaps.txt",
+                                  self.result.combined)
+            with open(self.workdir / "Temp" / "combined_gapstring.txt", "w") as fh:
+                for i, cg in enumerate(self.result.combined):
+                    fh.write(f"{i}\t{len(cg.seq)}\t{dtypes.decode(cg.seq)}\n")
+            write_fasta(self.workdir / "FilledScaffolds_final.fa",
+                        self.genome.to_fasta())
+        return self.result
+
+
+def run_from_config(cfg, workdir: str | Path | None = None,
+                    **kwargs) -> PipelineResult:
+    """Read the config's draft and libraries and run the whole schedule;
+    ``kwargs`` (``device``, ``fill_kwargs``, ...) go to :class:`Pipeline`."""
+    genome = Genome.from_fasta(read_fasta(cfg.draft_genome))
+    libs = [(read_fastq(l.path_1), read_fastq(l.path_2)) for l in cfg.read_pairs]
+    pipe = Pipeline(cfg, genome, libs, workdir=workdir, **kwargs)
+    return pipe.run()

@@ -3,8 +3,8 @@
 The reference's observability is wall-clock prints per fill step
 (FillGaps.cpp:935-938), per gap (Figbird.cpp:7422-7424) and per run
 (RunFigbird.sh:3,783-785), plus the draw_read placement visualisation.
-Here: a stage timer with reads/s counters (``figbird_tpu/utils/trace.py``'s
-``StageTimer``).
+Here (``figbird_tpu/utils/trace.py``): a stage timer with reads/s counters
+and an optional ``torch.profiler`` trace around any pipeline span.
 """
 
 from __future__ import annotations
@@ -59,3 +59,28 @@ class StageTimer:
 class _Null:
     def write(self, *_):
         pass
+
+
+@contextlib.contextmanager
+def trace_context(logdir: str | None):
+    """Wrap a span in a ``torch.profiler`` trace (host and, where PyTorch
+    was built with it, CUDA activity) when ``logdir`` is set; the Chrome
+    trace lands in ``logdir/trace.json``.  On an exception the profiler is
+    stopped and no trace is written."""
+    if not logdir:
+        yield
+        return
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+            if a in supported_activities()]
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(logdir) / "trace.json"))

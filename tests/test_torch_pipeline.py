@@ -1,10 +1,12 @@
 """One partial-mode iteration through both packages on the same simulation:
 the port must fill the same gaps with the same strings and learn the same
 model, at the production default (the exact soft-count cascade) and at the
-other precision settings; and the port must run where neither JAX nor
-``figbird_tpu`` can be imported."""
+other precision settings; ``run_from_config`` on the same data written to
+disk must write the same output tree, byte for byte; and the port must run
+where neither JAX nor ``figbird_tpu`` can be imported."""
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -19,7 +21,9 @@ import torch
 import figbird_tpu.pipeline as r_pipeline
 import figbird_tpu_torch.pipeline as t_pipeline
 from figbird_tpu.config import FigbirdConfig, Parameters, ReadLibrary
+from figbird_tpu.io import write_fasta, write_fastq
 from figbird_tpu.simulate import SimConfig, simulate
+from figbird_tpu_torch import config as t_config
 from figbird_tpu_torch import convert
 
 torch.set_num_threads(2)
@@ -167,6 +171,49 @@ def test_reference_exact_partial_equal(default_runs):
                         ref.gaptofill, n=1)
     # the scan is not capped: more candidates than the capped run's 16
     assert got.stats["scan_instances"] == ref.stats["scan_instances"] > 16
+
+
+def test_run_from_config_trees_equal(sim_cfg, default_runs, tmp_path):
+    """Both packages' ``run_from_config`` on the module's simulation written
+    to disk, with a user schedule of one p-iteration (the programs the
+    fixture compiled serve the reference): every file of the two output
+    trees (per-iteration artifacts, combined gaps, final assembly) is
+    byte-equal."""
+    sim, _ = sim_cfg
+    write_fasta(tmp_path / "draft.fa", sim.draft.to_fasta())
+    write_fastq(tmp_path / "r1.fq", sim.reads1)
+    write_fastq(tmp_path / "r2.fq", sim.reads2)
+    (tmp_path / "Config.json").write_text(json.dumps({
+        "Directory": {"Draft_Genome": str(tmp_path / "draft.fa"),
+                      "Output_Folder": str(tmp_path)},
+        "Read_Pairs": [{"path_1": str(tmp_path / "r1.fq"),
+                        "path_2": str(tmp_path / "r2.fq"),
+                        "avg_insert_size": 200, "max_read_length": 101,
+                        "num_itr_partial": 1, "num_itr_unmapped": 0}],
+        "Parameters": {"default": 0, "trim_len": 0}}))
+    kw = dict(fill_kwargs=SMALL, aligner_kwargs={"batch_size": 4096})
+    res_ref = r_pipeline.run_from_config(
+        FigbirdConfig.from_json(tmp_path / "Config.json"), tmp_path / "ref",
+        **kw)
+    res_got = t_pipeline.run_from_config(
+        t_config.FigbirdConfig.from_json(tmp_path / "Config.json"),
+        tmp_path / "got", device="cpu", **kw)
+    assert [(st.mode, st.lib, st.n_before, st.n_after)
+            for st in res_got.iterations] \
+        == [(st.mode, st.lib, st.n_before, st.n_after)
+            for st in res_ref.iterations] \
+        == [("p", 0, sim.draft.count_n(), res_ref.genome.count_n())]
+    assert res_ref.genome.count_n() < sim.draft.count_n()
+    trees = {}
+    for name in ("ref", "got"):
+        root = tmp_path / name
+        trees[name] = sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                             if p.is_file())
+    assert trees["got"] == trees["ref"]
+    assert len(trees["ref"]) == 11
+    for f in trees["ref"]:
+        assert (tmp_path / "got" / f).read_bytes() \
+            == (tmp_path / "ref" / f).read_bytes(), f
 
 
 def test_port_runs_without_jax():
