@@ -75,6 +75,31 @@ Phases (every one must pass; none is caught):
    shape, the FASTQ parse and evaluation times printed.  Each row of the
    kernels line for the p main path also carries the schedule's launches
    (``schedule_launches``).
+7. mesh — on bench.py's dataset, meshes over ``cuda:i % device_count``
+   (on one card, that card repeated: the shards run one after another
+   there, which drives every sharded path and its kernels but says nothing
+   of scaling).  (a) The code-range and contig-range genome-sharded
+   aligners on a (reads 2, genome 4) mesh, local and end-to-end presets,
+   both mates, against the replicated ``use_buckets=False`` aligner: score,
+   aligned, unique and second equal for every read, the placement fields
+   for every read with a candidate; each pass's wall and K5's launches by
+   genome shard.  (b) ``run_iteration("p", 0)`` and a fresh Pipeline's
+   ``run_iteration("u", 0)`` on a (reads 2, genome 2) mesh, code-range
+   shards, the launch counts set to 0 just before and read just after: all
+   five kernels launched; gap strings, gaptofill and contigs equal to
+   phases 4 and 5's single-device default iterations; walls and launches
+   by kernel and by shape.
+8. two processes — two workers on the card, each joined by
+   ``parallel.distributed.init_from_env`` (gloo on 127.0.0.1) and holding
+   half the read pairs, run the p-iteration; each one's N, gap strings,
+   gaptofill and contigs must equal phase 4's.  Each worker has a timeout;
+   one that fails or outlives it fails the script.  Per-process walls
+   and launches (every kernel launched in each).
+   On the kernels line each p row also carries the mesh p-iteration's
+   launches (``mesh_launches``) and the two processes' together
+   (``two_process_launches``), each u row the mesh u-iteration's at its
+   shape (``mesh_launches``), and K5's row the sharded aligners' launches
+   of phase 7a (``mesh_aligner_launches``).
 
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
@@ -82,6 +107,7 @@ name/power-limit line; the last line is the device JSON.
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -651,15 +677,18 @@ def phase_kernels_unmapped():
     return rows
 
 
-def u_rows_with_launches(u_rows, by_shape):
+def u_rows_with_launches(u_rows, by_shape, mesh_by_shape):
     """The kernels line's unmapped rows: each row at a (reads, positions)
-    shape the u-iteration launched its kernel at carries those launches;
-    a row at a shape it did not launch (the full-width buckets above 128
-    reads, which bench.py's dataset never fills) goes under the key
+    shape the u-iteration launched its kernel at carries those launches,
+    and the mesh u-iteration's at that shape (``mesh_launches``); a row at
+    a shape it did not launch (the full-width buckets above 128 reads,
+    which bench.py's dataset never fills) goes under the key
     ``not_on_main_path`` of its kernel's first row that did."""
     top, rest = [], []
     for r in u_rows:
-        r["launches"] = by_shape.get((r["name"],) + r.pop("key"), 0)
+        key = (r["name"],) + r.pop("key")
+        r["launches"] = by_shape.get(key, 0)
+        r["mesh_launches"] = mesh_by_shape.get(key, 0)
         (top if r["launches"] else rest).append(r)
     for r in rest:
         host = next((t for t in top if t["name"] == r["name"]), None)
@@ -745,10 +774,33 @@ def filled_accuracy(sim, gap_history):
     return correct / max(filled, 1), filled, total
 
 
-def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95):
+# the single-device default iterations of phases 4 and 5, by mode: what
+# the mesh and the two processes of phases 7 and 8 must give
+SINGLE = {}
+
+
+def run_record(pipe, st) -> dict:
+    (_, strings, skips), = pipe.result.gap_history
+    return dict(n_before=st.n_before, n_after=st.n_after, strings=strings,
+                gaptofill=np.asarray(skips), contigs=pipe.genome.contigs)
+
+
+def assert_runs_equal(got, want, what):
+    assert got["n_after"] == want["n_after"], (what, got["n_after"],
+                                               want["n_after"])
+    assert len(got["strings"]) == len(want["strings"]), what
+    for i, (a, b) in enumerate(zip(got["strings"], want["strings"])):
+        assert np.array_equal(a, b), f"{what}: gap string {i} differs"
+    assert np.array_equal(got["gaptofill"], want["gaptofill"]), what
+    for i, (a, b) in enumerate(zip(got["contigs"], want["contigs"])):
+        assert np.array_equal(a, b), f"{what}: contig {i} differs"
+
+
+def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95,
+             keep=False):
     """One iteration (``mode``) at full scale with the launch counts set to
     0 just before and read just after; the kernels in ``expect`` must have
-    been launched."""
+    been launched.  ``keep``: the run's outputs go to ``SINGLE[mode]``."""
     n_reads = 2 * len(sim.reads1)
     pipe = Pipeline(_cfg(200, 101), sim.draft, [(sim.reads1, sim.reads2)],
                     fill_kwargs=fill_kwargs, device=DEV)
@@ -772,6 +824,8 @@ def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95):
     assert st.n_after < st.n_before, "N not reduced"
     if min_acc is not None:
         assert acc >= min_acc, f"filled-base accuracy {acc:.4f} < {min_acc}"
+    if keep:
+        SINGLE[mode] = run_record(pipe, st)
     return launches, wall, pipe.result.gap_history[0][1]
 
 
@@ -836,7 +890,7 @@ def bench_sim(genome_len=4_600_000):
 def phase_main(sim, profile_run: bool):
     all5 = tuple(ops.LAUNCHES)
     four = tuple(k for k in all5 if k != "cascade")
-    launches, _, s_def = run_main(sim, "default", {}, all5)
+    launches, _, s_def = run_main(sim, "default", {}, all5, keep=True)
     _, _, s_f32 = run_main(sim, "exact_soft=False", {"exact_soft": False},
                            four)
     n_diff = sum(not np.array_equal(a, b) for a, b in zip(s_def, s_f32))
@@ -858,7 +912,7 @@ def phase_main_unmapped(sim, profile_run: bool):
     all five kernels launched, N reduced; then one reference_exact
     u-iteration and its gap strings against the default's."""
     all5 = tuple(ops.LAUNCHES)
-    _, wall, s_def = run_main(sim, "u default", {}, all5, "u")
+    _, wall, s_def = run_main(sim, "u default", {}, all5, "u", keep=True)
     by_shape = dict(ops.LAUNCHES_BY_SHAPE)
     log("main path u default: launches by (kernel, reads, positions) "
         + str(dict(sorted(by_shape.items()))))
@@ -1054,6 +1108,261 @@ def phase_schedule(sim):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+def mesh_devices(n: int) -> list:
+    """``cuda:i % device_count`` for i < n: n devices of the mesh on the
+    cards there are (on one card, that card n times)."""
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+@contextlib.contextmanager
+def k5_by_shard(al, by_shard: dict):
+    """Count K5's launches by genome shard while the sharded aligner ``al``
+    runs: its per-shard calls (the code-range path's ``align_batch``, the
+    contig-range path's ``score_candidates``) are wrapped and told apart by
+    the shard tables they are given."""
+    from figbird_tpu_torch.align import core
+
+    key = {}
+    for (r, g), cell in al._cells.items():
+        key[cell[2]["sorted_codes"].data_ptr() if isinstance(cell[2], dict)
+            else cell[0].data_ptr()] = g
+    contig = al._contig_sharded
+    module, name = (align_score, "score_candidates") if contig \
+        else (core, "align_batch")
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        g = key[args[0].data_ptr() if contig
+                else args[2]["sorted_codes"].data_ptr()]
+        before = ops.LAUNCHES["align_score"]
+        out = fn(*args, **kwargs)
+        by_shard[g] = by_shard.get(g, 0) + ops.LAUNCHES["align_score"] \
+            - before
+        return out
+
+    setattr(module, name, counted)
+    al._shard_fn.clear()  # the factories bind their callee when they run
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+ALIGN_CMP = ("score", "aligned", "unique", "second")
+PLACE_CMP = ("pos", "strand", "clip_start", "clip_end", "n_mis", "alen")
+
+
+def phase_mesh_aligners(sim):
+    """(a) The code-range and contig-range aligners on a (reads 2, genome 4)
+    mesh against the replicated ``use_buckets=False`` aligner, local and
+    end-to-end presets, both mates; the reference's test compares score,
+    aligned, unique and second for every read and the placement fields
+    for every read with a candidate."""
+    from figbird_tpu_torch.align import core
+    from figbird_tpu_torch.align.index import build_index
+    from figbird_tpu_torch.parallel import make_mesh
+
+    t0 = time.time()
+    idx = build_index(sim.draft, k=15)
+    log(f"mesh aligners: host index of {len(idx.flat)} flat bases in "
+        f"{time.time() - t0:.2f}s")
+    mesh = make_mesh(8, 4, devices=mesh_devices(8))
+    jobs = [(r.seq, r.length) for r in (sim.reads1, sim.reads2)]
+    kw = dict(two_tier=False, indel_tier=False)
+    n_k5_all = 0
+    for preset, p in (("local", core.AlignParams(want_mism=False)),
+                      ("e2e", core.e2e_params(
+                          core.AlignParams(want_mism=False)))):
+        al = core.Aligner(idx, p, use_buckets=False, device=DEV, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = al.align_many(jobs)
+        torch.cuda.synchronize()
+        log(f"mesh aligners {preset}: replicated use_buckets=False "
+            f"{time.time() - t0:.2f}s for {2 * len(sim.reads1)} reads")
+        for path in ("code", "contig"):
+            t0 = time.time()
+            al = core.Aligner(idx, p, mesh=mesh, genome_shard=path,
+                              contig_shard_threshold=1, **kw)
+            t_init = time.time() - t0
+            by_shard = {}
+            with k5_by_shard(al, by_shard):
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.time()
+                got = al.align_many(jobs)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            n_k5 = ops.LAUNCHES["align_score"]
+            n_k5_all += n_k5
+            for mate, (g, w) in enumerate(zip(got, want)):
+                for k in ALIGN_CMP:
+                    assert np.array_equal(g[k], w[k]), (path, preset, mate, k)
+                has = w["aligned"] | (w["score"] > -32000)
+                for k in PLACE_CMP:
+                    assert np.array_equal(g[k][has], w[k][has]), (
+                        path, preset, mate, k)
+            assert sum(by_shard.values()) == n_k5 > 0
+            assert sorted(by_shard) == [0, 1, 2, 3], by_shard
+            log(f"mesh aligners {preset} {path}-range on {mesh.shape}: "
+                f"equal to the replicated aligner for both mates "
+                f"({int(has.sum())} reads of mate 2 with a candidate); "
+                f"init {t_init:.2f}s, pass {wall:.2f}s, K5 launches "
+                f"{n_k5}, by genome shard {dict(sorted(by_shard.items()))}")
+    return n_k5_all
+
+
+def phase_mesh_iterations(sim):
+    """(b) The p-iteration and a fresh Pipeline's u-iteration on a
+    (reads 2, genome 2) mesh, code-range shards, each with the launch
+    counts set to 0 just before and read just after: all five kernels
+    launched; gap strings, gaptofill and contigs equal to phases 4 and 5's
+    single-device default iterations.  Returns the launches by kernel of
+    the p-iteration and by (kernel, reads, positions) of the u-iteration."""
+    from figbird_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(4, 2, devices=mesh_devices(4))
+    out = {}
+    for mode in ("p", "u"):
+        pipe = Pipeline(_cfg(200, 101), sim.draft,
+                        [(sim.reads1, sim.reads2)], mesh=mesh,
+                        aligner_kwargs={"genome_shard": "code"})
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.time()
+        st = pipe.run_iteration(mode, 0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+        by_shape = dict(sorted(ops.LAUNCHES_BY_SHAPE.items()))
+        by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
+        assert_runs_equal(run_record(pipe, st), SINGLE[mode],
+                          f"mesh {mode}-iteration")
+        missing = [k for k, n in launches.items() if n == 0]
+        assert not missing, f"kernels not launched on the mesh: {missing}"
+        log(f"mesh {mode}-iteration on {mesh.shape} (code-range): wall "
+            f"{wall:.2f}s, N {st.n_before} -> {st.n_after}, "
+            f"{len(SINGLE[mode]['strings'])} gap strings, gaptofill and "
+            f"contigs equal to the single-device iteration; launches "
+            f"{launches}; by (kernel, reads, positions) {by_shape}; K5 by "
+            f"candidates a read {by_c}")
+        pipe.timer.report(sys.stdout)
+        out[mode] = launches if mode == "p" else by_shape
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+WORKER = """
+import os, sys, time
+import numpy as np
+import torch
+
+sys.path.insert(0, os.environ["FIGBIRD_ROOT"])
+from figbird_tpu_torch.parallel.distributed import (init_from_env,
+                                                     process_index)
+
+assert init_from_env(), "no process group"
+from figbird_tpu_torch import config, ops
+from figbird_tpu_torch.genome import Genome
+from figbird_tpu_torch.io.fastq import ReadBatch
+from figbird_tpu_torch.pipeline import Pipeline
+
+z = np.load(os.environ["FIGBIRD_DATA"])
+draft = Genome([str(n) for n in z["names"]],
+               [z[f"c{i}"] for i in range(len(z["names"]))])
+libs = [tuple(ReadBatch(z[f"seq{m}"], z[f"len{m}"], z[f"qual{m}"])
+              for m in (1, 2))]
+cfg = config.FigbirdConfig(
+    draft_genome="", output_folder="",
+    read_pairs=[config.ReadLibrary("", "", avg_insert_size=200,
+                                   max_read_length=101)],
+    parameters=config.Parameters(trim_len=0, evaluation=0))
+pipe = Pipeline(cfg, draft, libs)
+assert pipe.dist
+n_pairs = len(pipe.libs[0][0])
+torch.cuda.synchronize()
+ops.reset_launches()
+t0 = time.time()
+st = pipe.run_iteration("p", 0)
+torch.cuda.synchronize()
+wall = time.time() - t0
+launches = [ops.LAUNCHES[k] for k in sorted(ops.LAUNCHES)]
+(_, strings, skips), = pipe.result.gap_history
+np.savez(os.environ["FIGBIRD_OUT"] + f".{process_index()}", wall=wall,
+         n_pairs=n_pairs, launches=launches, n_before=st.n_before,
+         n_after=st.n_after, gaptofill=np.asarray(skips),
+         **{f"s{i}": s for i, s in enumerate(strings)},
+         **{f"c{i}": c for i, c in enumerate(pipe.genome.contigs)})
+"""
+
+
+def phase_two_processes(sim, timeout=300):
+    """Two processes on the card, joined by gloo on 127.0.0.1
+    (``init_from_env``), each holding half the read pairs, run the
+    p-iteration; each one's N, gap strings, gaptofill and contigs must equal
+    phase 4's single-process iteration.  A worker that fails or outlives
+    its timeout fails the phase.  Returns the launches by kernel of both
+    processes' iterations together."""
+    import socket
+
+    with tempfile.TemporaryDirectory(prefix="figbird_two_") as tmp:
+        tmp = Path(tmp)
+        r1, r2 = sim.reads1, sim.reads2
+        np.savez(tmp / "data.npz", names=np.asarray(sim.draft.names),
+                 **{f"c{i}": c for i, c in enumerate(sim.draft.contigs)},
+                 seq1=r1.seq, len1=r1.length, qual1=r1.qual, seq2=r2.seq,
+                 len2=r2.length, qual2=r2.qual)
+        (tmp / "worker.py").write_text(WORKER)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        procs = []
+        t0 = time.time()
+        for rank in range(2):
+            env = dict(os.environ, FIGBIRD_ROOT=str(Path(__file__).parent),
+                       FIGBIRD_COORD=f"127.0.0.1:{port}", FIGBIRD_NPROCS="2",
+                       FIGBIRD_PROC=str(rank),
+                       FIGBIRD_DATA=str(tmp / "data.npz"),
+                       FIGBIRD_OUT=str(tmp / "out"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(tmp / "worker.py")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for rank, (p, lg) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"worker {rank}:\n{lg[-3000:]}"
+        log(f"two processes: both done {time.time() - t0:.1f}s after the "
+            f"start (process start, data load and the iteration)")
+        launches = dict.fromkeys(ops.LAUNCHES, 0)
+        for rank in range(2):
+            z = np.load(tmp / f"out.{rank}.npz")
+            mine = dict(zip(sorted(ops.LAUNCHES), map(int, z["launches"])))
+            n = len(SINGLE["p"]["strings"])
+            got = dict(n_after=int(z["n_after"]), gaptofill=z["gaptofill"],
+                       strings=[z[f"s{i}"] for i in range(n)],
+                       contigs=[z[f"c{i}"]
+                                for i in range(len(sim.draft.contigs))])
+            assert_runs_equal(got, SINGLE["p"], f"process {rank}")
+            missing = [k for k, n in mine.items() if n == 0]
+            assert not missing, f"process {rank} did not launch {missing}"
+            for k, n in mine.items():
+                launches[k] += n
+            log(f"two processes: process {rank} held {int(z['n_pairs'])} "
+                f"pairs, p-iteration wall {float(z['wall']):.2f}s, N "
+                f"{int(z['n_before'])} -> {int(z['n_after'])}, gap strings, "
+                f"gaptofill and contigs equal to the single process's; "
+                f"launches {mine}")
+    return launches
+
+
 def main():
     t_all = time.time()
     card = phase_device()
@@ -1065,10 +1374,21 @@ def main():
     launches = phase_main(sim, profile_run)
     u_by_shape = phase_main_unmapped(sim, profile_run)
     sched = phase_schedule(sim)
+    t0 = time.time()
+    k5_mesh_aligners = phase_mesh_aligners(sim)
+    mesh = phase_mesh_iterations(sim)
+    log(f"mesh phase {time.time() - t0:.1f}s")
+    t0 = time.time()
+    two = phase_two_processes(sim)
+    log(f"two-process phase {time.time() - t0:.1f}s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["schedule_launches"] = sched[r["name"]]
-    rows += u_rows_with_launches(u_rows, u_by_shape)
+        r["mesh_launches"] = mesh["p"][r["name"]]
+        r["two_process_launches"] = two[r["name"]]
+        if r["name"] == "align_score":
+            r["mesh_aligner_launches"] = k5_mesh_aligners
+    rows += u_rows_with_launches(u_rows, u_by_shape, mesh["u"])
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(card)

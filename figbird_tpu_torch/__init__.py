@@ -21,8 +21,10 @@ Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors.  The entry points (``Pipeline``, ``Aligner``,
 ``fill_gaps``, the CLI) run on the card unless the caller passes
 ``device="cpu"`` (``--device cpu``); without a card and without that
-argument they raise.  The mesh and multi-host options are not ported yet
-and raise ``NotImplementedError``.
+argument they raise.  The multi-device layer (:mod:`.parallel`) runs them
+over a ``(reads, genome)`` mesh of devices, with code-range or
+contig-range genome shards, and over several processes joined by gloo,
+with the single-device results.
 """
 
 __version__ = "0.3.0"

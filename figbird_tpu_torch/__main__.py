@@ -5,8 +5,11 @@ replaces ``./RunFigbird.sh Config.json`` (RunFigbird.sh:1-831): config
 parse/validation, output tree setup, the full iteration schedule, final gap
 combination + filled-assembly emission, and optional evaluation.  It writes
 the same files, in the same formats.  It runs on the card unless
-``--device cpu`` asks for the CPU; without a card it raises.  The mesh
-options are a later slice of the port and raise ``NotImplementedError``.
+``--device cpu`` asks for the CPU; without a card it raises.
+``--mesh-devices N [--genome-shards G]`` runs over a mesh of N visible
+cards (with ``--device cpu``, N repeated CPU devices); the FIGBIRD_COORD,
+FIGBIRD_NPROCS and FIGBIRD_PROC variables run it as one of several
+processes (``parallel.distributed``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ from pathlib import Path
 
 
 def main(argv=None) -> int:
+    # multi-process: the gloo process group from the FIGBIRD_* variables
+    from .parallel.distributed import init_from_env
+
+    init_from_env()
     ap = argparse.ArgumentParser(
         prog="figbird_tpu_torch",
         description="Iterative gap filling (Figbird-equivalent) on one GPU")
@@ -29,18 +36,16 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler trace of the run here")
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="devices of a data-parallel mesh (0 = off; not "
-                         "ported yet)")
+                    help="build an N-device mesh of --device's type and run "
+                         "the aligner/fill data-parallel over it (0 = off)")
     ap.add_argument("--genome-shards", type=int, default=1,
-                    help="genome-axis size of the mesh (not ported yet)")
+                    help="genome-axis size of the mesh; >1 shards the "
+                         "genome/k-mer index across devices (policy from "
+                         "Parameters.genome_shard: auto|contig|code)")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: the GPU; 'cpu' "
                          "runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh_devices or args.genome_shards > 1:
-        raise NotImplementedError(
-            "--mesh-devices and --genome-shards are not ported yet; see "
-            "ROADMAP.md, queue 1 item 11 (the port runs on one device)")
 
     from .combine import combine_gap_history, write_individual_gaps
     from .config import FigbirdConfig
@@ -56,6 +61,19 @@ def main(argv=None) -> int:
     t_start = time.time()
     device = entry_device(args.device)
     cfg = FigbirdConfig.from_json(args.config)
+    mesh = None
+    aligner_kwargs = {}
+    if args.mesh_devices:
+        from .parallel import make_mesh
+
+        # on the CPU, N devices are one device repeated (its stand-in for
+        # several); on the card, N of the visible cards (more raise)
+        mesh = make_mesh(args.mesh_devices,
+                         genome_shards=max(args.genome_shards, 1),
+                         devices=([device] * args.mesh_devices
+                                  if device.type == "cpu" else None))
+        if args.genome_shards > 1:
+            aligner_kwargs["genome_shard"] = cfg.parameters.genome_shard
     workdir = Path(cfg.output_folder) / "Figbird"
     workdir.mkdir(parents=True, exist_ok=True)
 
@@ -74,7 +92,12 @@ def main(argv=None) -> int:
           f"{genome.count_n()} Ns in {len(genome.find_gaps())} gaps; "
           f"{n_reads} reads in {len(libs)} libraries", file=sys.stderr)
 
-    pipe = Pipeline(cfg, genome, libs, workdir=workdir, device=device)
+    if mesh is not None:
+        print(f"# mesh: {mesh.shape} genome_shard="
+              f"{cfg.parameters.genome_shard}", file=sys.stderr)
+
+    pipe = Pipeline(cfg, genome, libs, workdir=workdir, device=device,
+                    mesh=mesh, aligner_kwargs=aligner_kwargs)
     with trace_context(args.trace_dir):
         result = pipe.run(max_iterations=args.max_iterations)
 

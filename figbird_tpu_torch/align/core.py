@@ -1,8 +1,9 @@
-"""Device seed-and-extend alignment (``figbird_tpu/align/core.py``), one device.
+"""Device seed-and-extend alignment (``figbird_tpu/align/core.py``).
 
 1. **Seed**: S k-mers per read at evenly spaced offsets, looked up in the
-   direct-addressed prefix buckets of the sorted k-mer table, up to H hits
-   each, for the read and its reverse complement.
+   direct-addressed prefix buckets of the sorted k-mer table (or, for the
+   genome-sharded tables, by binary search), up to H hits each, for the
+   read and its reverse complement.
 2. **Extend**: every candidate window gets a gapless local score and a
    full-read (end-to-end) score — the K5 kernel (``ops.align_score``);
    bowtie2 ``--local`` soft-clip semantics, or with ``end_to_end`` (the
@@ -13,8 +14,10 @@
 
 Two-tier escalation (cheap seeding pass, then the full pass for reads it
 could not settle), the banded indel tier and the device model-statistics
-passes follow the reference.  The mesh and genome-sharded branches are not
-ported.
+passes follow the reference.  On a mesh (``parallel.mesh``) each batch
+splits over the ``reads`` axis; a ``genome`` axis above 1 shards the k-mer
+table by code range or the flat genome by contig range
+(``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from ..dtypes import COMPLEMENT, GAP_CODE
-from ..ops import entry_device
+from ..ops import canonical_device, entry_device
 from ..ops.align_score import score_candidates
 from .index import KmerIndex, build_device_tables, host_tables
 
@@ -133,9 +136,24 @@ def _seed_codes(reads, lengths, k: int, n_seeds: int):
 
 
 def _seed_hits(tables: dict, codes, valid, H: int, repeat_limit: int,
-               prefix_shift: int):
-    """Prefix-bucket seed lookup: (hit_pos (B,S,H), hmask, overflow (B,S))."""
+               prefix_shift: int | None):
+    """Seed lookup: (hit_pos (B,S,H), hmask, overflow (B,S)).  Prefix
+    buckets, or with ``prefix_shift=None`` a binary search of the sorted
+    table (``sorted_codes``, ``sorted_pos``: the code-range-sharded tables
+    and ``Aligner(use_buckets=False)``)."""
     dev = codes.device
+    if prefix_shift is None:
+        sorted_codes, sorted_pos = tables["sorted_codes"], tables["sorted_pos"]
+        M = sorted_codes.shape[0]
+        lo = torch.searchsorted(sorted_codes, codes, side="left")
+        hi = torch.searchsorted(sorted_codes, codes, side="right")
+        cnt = hi - lo
+        h = torch.arange(H, device=dev)
+        hmask = ((h < cnt[..., None]) & valid[..., None]
+                 & (cnt[..., None] <= repeat_limit))
+        hit_idx = torch.clamp(lo[..., None] + h, 0, M - 1)
+        overflow = valid & (cnt > H) & (cnt <= repeat_limit)
+        return sorted_pos[hit_idx], hmask, overflow
     prefix = (codes >> prefix_shift).long()
     lo = tables["starts"][prefix]
     hi = tables["starts"][prefix + 1]
@@ -165,7 +183,7 @@ def _seed_hits(tables: dict, codes, valid, H: int, repeat_limit: int,
 
 
 def _align_one_strand(flat, flatlen: int, tables, reads, lengths, k: int,
-                      p: AlignParams, prefix_shift: int) -> dict:
+                      p: AlignParams, prefix_shift: int | None) -> dict:
     B, L = reads.shape
     codes, valid, offs = _seed_codes(reads, lengths, k, p.n_seeds)
     H = p.hits_per_seed
@@ -202,9 +220,15 @@ def _pack_out(out: dict, read_len: int) -> torch.Tensor:
     """The reference's bit-packed (B, 4) int32 layout (``_pack_out``):
     w0 pos; w1 score(i16)<<16 | second(i16); w2 n_mis | cand_i<<8 |
     flags<<16; w3 alen | clip_start<<16 | clip_end<<24.  Reads longer than
-    255 use the wide 12-column layout."""
+    255 use the wide 12-column layout.  Contig-sharded aligners carry the
+    winning shard (``out["shard"]``: their ``pos`` is LOCAL to it) in w2's
+    top byte, or as a 13th wide column."""
+    shard = out.get("shard")
     if read_len > 255:
-        return torch.stack([out[k].to(torch.int32) for k in PACK_KEYS], 1)
+        cols = [out[k].to(torch.int32) for k in PACK_KEYS]
+        if shard is not None:
+            cols.append(shard.to(torch.int32))
+        return torch.stack(cols, 1)
 
     def u8(x):
         return x.long().clamp(0, 255)
@@ -214,6 +238,8 @@ def _pack_out(out: dict, read_len: int) -> torch.Tensor:
 
     flags = (out["hit_overflow"].long() | (out["aligned"].long() << 1)
              | (out["unique"].long() << 2) | (out["strand"].long() << 3))
+    if shard is not None:
+        flags = flags | (u8(shard) << 8)
     w = torch.stack([
         out["pos"].long(),
         (i16(out["score"]) << 16) | i16(out["second"]),
@@ -225,7 +251,7 @@ def _pack_out(out: dict, read_len: int) -> torch.Tensor:
 
 def unpack_out(packed: np.ndarray) -> dict:
     """Host unpack of :func:`_pack_out` (copied from the reference)."""
-    if packed.shape[1] != 4:  # wide layout
+    if packed.shape[1] != 4:  # wide layout (+ an optional shard column)
         out = {}
         for i, k in enumerate(PACK_KEYS):
             v = packed[:, i]
@@ -234,6 +260,8 @@ def unpack_out(packed: np.ndarray) -> dict:
             elif k == "strand":
                 v = v.astype(np.int8)
             out[k] = v
+        if packed.shape[1] > len(PACK_KEYS):
+            out["shard"] = packed[:, len(PACK_KEYS)].astype(np.int32)
         return out
     pu = packed.astype(np.uint32)
 
@@ -259,7 +287,7 @@ def unpack_out(packed: np.ndarray) -> dict:
 
 
 def align_batch(flat, flatlen: int, tables, reads, lengths, k: int,
-                params: AlignParams, prefix_shift: int) -> dict:
+                params: AlignParams, prefix_shift: int | None) -> dict:
     """Align a batch against both strands; returns the packed per-read best
     alignment (and the mismatch mask when ``params.want_mism``)."""
     fwd = _align_one_strand(flat, flatlen, tables, reads, lengths, k, params,
@@ -309,31 +337,80 @@ def align_batch(flat, flatlen: int, tables, reads, lengths, k: int,
     return out
 
 
+def _host_cat(parts: list) -> np.ndarray:
+    """Tensors concatenated on the host: one copy from a single device,
+    one per part where they lie on several."""
+    if len({t.device for t in parts}) == 1:
+        return torch.cat(parts).cpu().numpy()
+    return np.concatenate([t.cpu().numpy() for t in parts])
+
+
+# the replicated host-global flat's budget in bases (int8: one byte a
+# base), capped at int32 positions; tests monkeypatch it
+HOST_FLAT_BUDGET = 6 * 2**30
+
+
+def _host_flat_budget() -> int:
+    return min(2**31, HOST_FLAT_BUDGET)
+
+
+def host_flat_ok(n_bases: int) -> bool:
+    """Whether a host-global flat of n_bases can be replicated on the
+    devices (int32 positions and the memory budget).  The pipeline uses this
+    to decide whether device model stats will be available (else it keeps
+    the mismatch mask for the host model learning)."""
+    return n_bases < _host_flat_budget()
+
+
 class Aligner:
     """Host-facing aligner: device copies of the genome and the k-mer table,
     reads aligned in batches.  ``two_tier=True`` runs a cheap seeding pass
     first and re-aligns with the full params only the reads it could not
     settle (see the reference's class docstring).  ``device=None`` is the
-    card (an error where there is none); ``device="cpu"`` asks for the CPU."""
+    card (an error where there is none); ``device="cpu"`` asks for the CPU.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the batch size is multiplied by the
+    reads axis and each batch splits over it, each reads shard aligned on
+    its row's device; the outputs equal a single device's.  A genome axis
+    above 1 shards the k-mer table by code range (``genome_shard="code"``;
+    equal to ``use_buckets=False``) or the flat genome by contig range
+    (``"contig"``; ``"auto"`` takes it for flats of at least
+    ``contig_shard_threshold`` bases).  Past ``host_flat_ok`` the contig
+    path keeps no replicated flat: no banded indel tier, no device model
+    statistics (``supports_device_stats``).  ``use_buckets=False``: the
+    binary-search tables over a host-built index, the enumeration of the
+    code-range shards."""
 
     def __init__(self, index: KmerIndex, params: AlignParams = AlignParams(),
                  batch_size: int = 32768, two_tier: bool = True,
                  cheap_params: AlignParams | None = None,
                  indel_tier: bool = True, indel_min_clip: int = 4,
-                 indel_win_margin: int = 4, banded_params=None, device=None):
+                 indel_win_margin: int = 4, banded_params=None, device=None,
+                 mesh=None, use_buckets: bool = True,
+                 genome_shard: str = "auto",
+                 contig_shard_threshold: int = 2**31):
         from .banded import BandedParams
 
-        self.device = entry_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and canonical_device(device) != mesh.first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.first}")
+            device = mesh.first
+        self.device = canonical_device(entry_device(device))
         self.index = index
         self.params = params
         self.indel_tier = indel_tier
+        # False once the contig-sharded path skips the replicated flat
+        self.supports_device_stats = True
         self.indel_min_clip = indel_min_clip
         self.indel_win_margin = indel_win_margin
         self.banded_params = banded_params or BandedParams()
         if params.end_to_end and not self.banded_params.end_to_end:
             # the indel tier re-scores glocally in end-to-end mode
             self.banded_params = replace(self.banded_params, end_to_end=True)
-        self.batch_size = batch_size
+        self._n_rd = mesh.shape["reads"] if mesh is not None else 1
+        self.batch_size = batch_size * self._n_rd
         self.two_tier = two_tier
         if cheap_params is None:
             cheap_params = replace(params, n_seeds=min(2, params.n_seeds),
@@ -341,60 +418,172 @@ class Aligner:
         self.cheap_params = cheap_params
         if index.k > 15:
             raise ValueError("device aligner requires k <= 15 (int32 codes)")
-        if len(index.flat) >= 2 ** 31:
-            raise ValueError("flat genome exceeds int32 positions (genome "
-                             "sharding is not ported)")
-        self._flat = torch.as_tensor(as_rows(index.flat), device=self.device)
+        ns = mesh.shape["genome"] if mesh is not None else 1
+        self._devices = mesh.distinct() if mesh is not None \
+            else [self.device]
+        self._genome_sharded = ns > 1
+        self._contig_sharded = self._genome_sharded and (
+            genome_shard == "contig" or (
+                genome_shard == "auto"
+                and len(index.flat) >= contig_shard_threshold))
+        if len(index.flat) >= 2**31 and not self._contig_sharded:
+            raise ValueError(
+                "flat genome exceeds int32 positions; use a mesh with a "
+                "genome axis (contig-range sharding, parallel/sharded.py)")
         self._flatlen = len(index.flat)
+        self._prefix_shift = None
+        self._tables_on: dict = {}
+        self._shard_fn: dict = {}
+        if self._contig_sharded:
+            self._init_contig_shards(index, ns)
+            return
+        self._flat_on = self._replicate(
+            torch.as_tensor(as_rows(index.flat), device=self.device))
+        if self._genome_sharded:
+            from ..parallel.sharded import split_index_by_code
+
+            codes, pos = split_index_by_code(
+                index.sorted_codes.astype(np.int32),
+                index.sorted_pos.astype(np.int32), ns)
+            w = len(codes) // ns
+            self._cells = {}
+            for (r, g), d in np.ndenumerate(mesh.devices):
+                self._cells[r, g] = (self._flat_on[d], self._flatlen, dict(
+                    sorted_codes=torch.as_tensor(codes[g * w : (g + 1) * w],
+                                                 device=d),
+                    sorted_pos=torch.as_tensor(pos[g * w : (g + 1) * w],
+                                               device=d)))
+            return
         if index.sorted_codes is None:
             self._prefix_shift = 2 * (index.k - index.prefix_bases)
-            self._tables, _ = build_device_tables(
+            tables, _ = build_device_tables(
                 index.flat, index.k, index.prefix_bases, self.device)
+        elif not use_buckets:
+            # binary-search tables: the enumeration the code-range shards
+            # use (the equality baseline of the sharded aligners)
+            tables = dict(
+                sorted_codes=torch.as_tensor(
+                    index.sorted_codes.astype(np.int32), device=self.device),
+                sorted_pos=torch.as_tensor(
+                    index.sorted_pos.astype(np.int32), device=self.device))
         else:
-            self._tables = host_tables(index, self.device)
+            tables = host_tables(index, self.device)
             self._prefix_shift = 2 * (index.k - index.prefix_bases)
+        self._tables_on = {d: {k: v.to(d) for k, v in tables.items()}
+                           for d in self._devices}
+
+    def _replicate(self, t: torch.Tensor) -> dict:
+        """``t`` on every distinct device of the mesh (once each)."""
+        return {d: t.to(d) for d in self._devices}
+
+    @property
+    def _flat(self):
+        """The replicated flat on the aligner's own (first) device."""
+        return self._flat_on[self.device] if self._flat_on else None
+
+    def _init_contig_shards(self, index, ns: int) -> None:
+        """Contig-range shards: each cell holds its row's slice of the flat
+        genome and its own table of local positions; the int64 shard bases
+        stay on the host (positions are globalized in ``_collect``).  The
+        replicated host-global flat for the banded tier and the statistics
+        passes exists only within ``host_flat_ok``: past it, positions on
+        the devices would wrap, so the banded tier is off and the model is
+        learned on the host (``pipeline._learn_model_host``)."""
+        from ..parallel.sharded import split_index_by_contig
+
+        cs = split_index_by_contig(index, ns)
+        rows, M = cs["rows"], cs["M"]
+        self._cs_base = np.asarray(cs["base"], np.int64)
+        self._cells = {}
+        for (r, g), d in np.ndenumerate(self.mesh.devices):
+            self._cells[r, g] = (
+                torch.as_tensor(cs["flat2d"][g * rows : (g + 1) * rows]
+                                .reshape(-1), device=d),
+                int(cs["flatlen"][g]),
+                torch.as_tensor(cs["codes"][g * M : (g + 1) * M], device=d),
+                torch.as_tensor(cs["pos"][g * M : (g + 1) * M], device=d))
+        if host_flat_ok(len(index.flat)):
+            self._flat_on = self._replicate(
+                torch.as_tensor(as_rows(index.flat), device=self.device))
+        else:
+            self.supports_device_stats = False
+            logger.warning(
+                "contig-sharded aligner: flat genome (%d bases) exceeds the "
+                "replicated int32/memory budget; banded indel tier and "
+                "device model stats disabled (host fallbacks used)",
+                len(index.flat))
+            self._flat_on = {}
+            self.indel_tier = False
 
     # ------------------------------------------------------------------
+    def _align_part(self, r: int, chunk, lens, params: AlignParams) -> dict:
+        """One reads shard's part of a batch, on its row's device."""
+        if not self._genome_sharded:
+            d = chunk.device
+            return align_batch(self._flat_on[d], self._flatlen,
+                               self._tables_on[d], chunk, lens,
+                               self.index.k, params, self._prefix_shift)
+        fn = self._shard_fn.get(params)
+        if fn is None:
+            from ..parallel import sharded
+
+            make = sharded.make_contig_sharded_align if self._contig_sharded \
+                else sharded.make_genome_sharded_align
+            fn = self._shard_fn[params] = make(self.mesh, self.index.k,
+                                               params)
+        ns = self.mesh.shape["genome"]
+        return fn(r, [self._cells[r, g] for g in range(ns)], chunk, lens)
+
     def _dispatch_pass(self, seq: np.ndarray, lengths: np.ndarray,
                        params: AlignParams):
-        """Upload the read set once (padded to a batch multiple) and align
-        it batch by batch.  Returns (per-batch output dicts, (chunk, lens)
-        device handles for the statistics passes)."""
+        """Upload the read set (padded to a batch multiple) and align it
+        batch by batch, each batch split over the reads shards.  Returns
+        (per-part output dicts, (chunk, lens) device handles of the parts
+        for the statistics passes), both in read order."""
         n, L = seq.shape
         bs = self.batch_size
+        part = bs // self._n_rd
         n_pad = -(-max(n, 1) // bs) * bs
         if n_pad != n:
             seq = np.concatenate(
                 [seq, np.full((n_pad - n, L), GAP_CODE, dtype=np.int8)])
             lengths = np.concatenate(
                 [lengths, np.zeros(n_pad - n, dtype=lengths.dtype)])
-        dev_all = torch.as_tensor(seq, device=self.device)
-        lens_all = torch.as_tensor(lengths.astype(np.int32),
-                                   device=self.device)
-        outs, handle = [], []
-        for i in range(0, n_pad, bs):
-            chunk, lens = dev_all[i : i + bs], lens_all[i : i + bs]
-            handle.append((chunk, lens))
-            outs.append(align_batch(self._flat, self._flatlen, self._tables,
-                                    chunk, lens, self.index.k, params,
-                                    self._prefix_shift))
+        lengths = lengths.astype(np.int32)
+        if self.mesh is None:  # one upload for the whole pass
+            dev_all = torch.as_tensor(seq, device=self.device)
+            lens_all = torch.as_tensor(lengths, device=self.device)
+            handle = [(dev_all[i : i + bs], lens_all[i : i + bs])
+                      for i in range(0, n_pad, bs)]
+        else:
+            handle = []
+            for i in range(0, n_pad, part):
+                d = self.mesh.device((i // part) % self._n_rd, 0)
+                handle.append((torch.as_tensor(seq[i : i + part], device=d),
+                               torch.as_tensor(lengths[i : i + part],
+                                               device=d)))
+        outs = [self._align_part(j % self._n_rd, chunk, lens, params)
+                for j, (chunk, lens) in enumerate(handle)]
         return outs, handle
 
     @staticmethod
     def _fetch(outs: list) -> dict:
-        """One host copy per output kind for the whole pass."""
+        """One host copy per output kind and device for the whole pass."""
         if not outs:
             return {}
-        return {kk: torch.cat([o[kk] for o in outs]).cpu().numpy()
+        return {kk: _host_cat([o[kk] for o in outs])
                 for kk in ("packed", "mism") if kk in outs[0]}
 
-    @staticmethod
-    def _collect(host: dict, n: int) -> dict:
+    def _collect(self, host: dict, n: int) -> dict:
         if not host:
             return {}
         out = unpack_out(host["packed"][:n])
         if "mism" in host:
             out["mism"] = host["mism"][:n]
+        if self._contig_sharded and "shard" in out:
+            # globalize: shard-local positions + int64 shard bases
+            out["pos"] = self._cs_base[out["shard"]] + \
+                out["pos"].astype(np.int64)
         return out
 
     def align(self, seq: np.ndarray, lengths: np.ndarray,
@@ -410,7 +599,8 @@ class Aligner:
             except torch.cuda.OutOfMemoryError:
                 if attempt == 2:
                     raise
-                self.batch_size = max(self.batch_size // 2, 4096)
+                self.batch_size = -(-max(self.batch_size // 2, 4096)
+                                    // self._n_rd) * self._n_rd
                 logger.warning("align pass out of device memory (attempt "
                                "%d); retrying with batch_size=%d",
                                attempt + 1, self.batch_size)
@@ -466,27 +656,36 @@ class Aligner:
                                         scores)
             logger.info("align banded: %.2fs", _time.time() - _t3)
 
-        if keep_stats:
+        if keep_stats and self.supports_device_stats:
             for out, h in zip(outs, handles):
                 out["stats_handle"] = h
         return outs
 
     # ------------------------------------------------------------------
     def _stats_dispatch(self, fn, handle, per_read_args, extra=()):
-        """Run a per-batch statistics pass over the retained device chunks;
-        returns the per-batch outputs concatenated on the host."""
-        bs = self.batch_size
-        outs = []
-        for bi, (chunk, lens) in enumerate(handle):
-            i0 = bi * bs
+        """Run a per-batch statistics pass over the retained device chunks,
+        each on its own device; returns the outputs concatenated on the
+        host.  ``extra``: host arrays every pass takes whole."""
+        if not self._flat_on:
+            raise RuntimeError(
+                "device stats unavailable: contig-sharded aligner skipped "
+                "the replicated host flat (genome past int32/memory "
+                "budget); use the host collect_stats path")
+        extra_on = {d: tuple(torch.as_tensor(a, device=d) for a in extra)
+                    for d in {chunk.device for chunk, _ in handle}}
+        outs, i0 = [], 0
+        for chunk, lens in handle:
+            bs, d = chunk.shape[0], chunk.device
             args = []
             for a in per_read_args:
                 v = np.zeros(bs, a.dtype)
                 sl = a[i0 : i0 + bs]
                 v[: len(sl)] = sl
-                args.append(torch.as_tensor(v, device=self.device))
-            outs.append(fn(self._flat, chunk, lens, *args, *extra))
-        return torch.cat(outs).cpu().numpy()
+                args.append(torch.as_tensor(v, device=d))
+            outs.append(fn(self._flat_on[d], chunk, lens, *args,
+                           *extra_on[d]))
+            i0 += bs
+        return _host_cat(outs)
 
     def model_stats_pair(self, jobs) -> list:
         """Device sufficient statistics for both mates: list of dicts
@@ -524,8 +723,7 @@ class Aligner:
             return v[:L]
 
         t_cyc, lbe, let, noe = model_log10_arrays(model)
-        extra = tuple(torch.as_tensor(a, device=self.device)
-                      for a in (fit(t_cyc), lbe, let, fit(noe)))
+        extra = (fit(t_cyc), lbe, let, fit(noe))
         vals = self._stats_dispatch(
             err_log10_batch, handle,
             (pos.astype(np.int32), strand.astype(np.int8), mask.astype(bool),

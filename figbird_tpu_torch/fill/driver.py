@@ -27,7 +27,8 @@ import torch
 
 from ..dtypes import GAP_CODE, N
 from ..genome import GapInfo
-from ..ops import entry_device
+from ..ops import canonical_device, entry_device
+from ..parallel.sharded import sharded_fill
 from .em import (_CASCADE_GROUP, SCAN_COLS, FillConfig,
                  fill_batch_full_packed, fill_batch_scan,
                  finalize_batch_packed, finalize_packed_layout,
@@ -661,7 +662,8 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
               max_scan_lengths: int | None = None, scan_block: int = 64,
               reference_exact: bool = False,
               exact_soft: bool | str | None = None,
-              soft_levels: int | None = None, device=None) -> FillResult:
+              soft_levels: int | None = None, device=None,
+              mesh=None) -> FillResult:
     """Fill all gaps for one iteration on ``device``: partial mode
     (``partial_mode=True``) or unmapped mode.
 
@@ -683,7 +685,11 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
     the flagged instances.  ``False`` = plain f32 only, no detection (a
     precision-attribution trial).  ``soft_levels`` defaults to 3 (1 with
     ``exact_soft=False``).  ``device=None`` is the card (an error where
-    there is none); ``device="cpu"`` asks for the CPU.
+    there is none); ``device="cpu"`` asks for the CPU.  ``mesh``: every
+    dispatched chunk of instances splits over the mesh's reads shards, each
+    part on its row's device (the gap arrays and the model put once on each
+    device), the outputs concatenated in order; ``device`` is then the
+    mesh's first device.
     """
     if exact_soft is None:
         exact_soft = True
@@ -694,7 +700,15 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
     scan_fast = exact_soft == "hybrid"
     if soft_levels is None:
         soft_levels = 1 if exact_soft is False else 3
+    if mesh is not None:
+        if device is not None and canonical_device(device) != mesh.first:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh.first}")
+        device = mesh.first
     device = entry_device(device)
+    n_rd = mesh.shape["reads"] if mesh is not None else 1
+    row_devs = [mesh.device(r, 0) for r in range(n_rd)] \
+        if mesh is not None else [device]
     if max_scan_lengths is None:
         max_scan_lengths = 96 if partial_mode else 0
     em_iters_unmapped = EM_ITERS_UNMAPPED
@@ -759,6 +773,8 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
 
     marr = {k: torch.as_tensor(v, device=device)
             for k, v in model_arrays(model, L).items()}
+    marr_on = {d: {k: v.to(d) for k, v in marr.items()}
+               for d in dict.fromkeys(row_devs)}
     for (gb, pb, rb, large), gids in sorted(buckets.items()):
         cfg = FillConfig(
             W=L + gb + L, Wp=L + gb, L=L, WL=L, max_gap_len=gb, R=rb, P=pb,
@@ -774,8 +790,9 @@ def fill_gaps(genome, gaps, bundles, model, partial_mode: bool,
         per_inst = max(pb, rb) * (5 * cfg.L + (1 + _CASCADE_GROUP)
                                   * cfg.Wp) * 8
         ib = max(4, min(instance_batch, int(1.5e9) // max(per_inst, 1)))
-        _fill_bucket(genome, plans, gids, cfg, marr, ib, scan_block,
-                     out_strings, placements, stats, second_best, device,
+        ib = -(-ib // n_rd) * n_rd  # the instance axis divides over reads
+        _fill_bucket(genome, plans, gids, cfg, marr_on, ib, scan_block,
+                     out_strings, placements, stats, second_best, row_devs,
                      large, staged_scan=not reference_exact,
                      prec_escalate=prec_escalate, scan_fast=scan_fast)
     logger.info("fill timers: %s scan_instances=%d",
@@ -799,10 +816,10 @@ def _chunk_sizes(m: int, batch: int) -> list[int]:
     return out
 
 
-def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
-                 out_strings, placements, stats, second_best, device,
-                 large_flag=False, staged_scan=True, prec_escalate=False,
-                 scan_fast=False):
+def _fill_bucket(genome, plans, gids, cfg, marr_on, instance_batch,
+                 scan_block, out_strings, placements, stats, second_best,
+                 row_devs, large_flag=False, staged_scan=True,
+                 prec_escalate=False, scan_fast=False):
     """Probe (unmapped small gaps), length scan, winner re-run, finalize and
     guards for one bucket.
 
@@ -814,11 +831,17 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
     re-run with the exact cascade.  ``scan_fast``: the length scan runs
     ``cfg.soft_levels`` cascade levels; re-runs and finalize run ``cfg``.
     ``large_flag``: the bucket's gaps take the large-gap EM (finalize extras
-    and the region break in every pass)."""
+    and the region break in every pass).  ``row_devs``: the device of each
+    reads shard (one without a mesh); ``marr_on``: the model's arrays on
+    each of them."""
     partial_mode = cfg.partial_mode
     _t0 = _time.time()
     gap_arrays = _build_gap_arrays(genome, [plans[g] for g in gids], cfg,
-                                   device)
+                                   row_devs[0])
+    ga_on = {d: gap_arrays if d == row_devs[0]
+             else {k: v.to(d) for k, v in gap_arrays.items()}
+             for d in dict.fromkeys(row_devs)}
+    shards = [(d, ga_on[d], marr_on[d]) for d in row_devs]
     stats["t_build"] = stats.get("t_build", 0) + round(_time.time() - _t0, 3)
     row_of = {gi: r for r, gi in enumerate(gids)}
     staged = not partial_mode and staged_scan and cfg.em_iters > STAGE_ITERS
@@ -872,13 +895,14 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                         large_break=False)
     run_full = partial(fill_batch_full_packed, finalize_flag=large_flag)
 
-    def idx_tensors(rows, lens, size):
+    def idx_arrays(rows, lens, size):
         pad = size - len(rows)
-        gi_ = torch.as_tensor(np.asarray(list(rows) + [0] * pad, np.int32),
-                              device=device)
-        gl_ = torch.as_tensor(np.asarray(list(lens) + [1] * pad, np.int32),
-                              device=device)
-        return gi_, gl_
+        return (np.asarray(list(rows) + [0] * pad, np.int32),
+                np.asarray(list(lens) + [1] * pad, np.int32))
+
+    def fetch(parts) -> np.ndarray:
+        """A chunk's outputs, its parts over the reads shards in order."""
+        return np.concatenate([d.cpu().numpy() for _, d in parts])
 
     def dispatch_rows(fn, rows, lens, tier, batch, width=None):
         """Run (row, len) instances at a tier; the packed host matrix in
@@ -898,13 +922,13 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
             for sz in _chunk_sizes(len(idx), batch):
                 sel = idx[c0 : c0 + sz]
                 c0 += sz
-                gi_, gl_ = idx_tensors([rows[i] for i in sel],
-                                       [lens[i] for i in sel], sz)
-                parts.append((sel, fn(cfg_for(tier, w), gap_arrays, gi_,
-                                      gl_, marr)))
+                gi_, gl_ = idx_arrays([rows[i] for i in sel],
+                                      [lens[i] for i in sel], sz)
+                parts.append((sel, sharded_fill(shards, fn, cfg_for(tier, w),
+                                                gi_, gl_)))
         out = None
         for sel, dev_out in parts:
-            h = dev_out.cpu().numpy()
+            h = fetch(dev_out)
             if out is None:
                 out = np.zeros((n, h.shape[1]), h.dtype)
             out[sel] = h[: len(sel)]
@@ -1120,8 +1144,8 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
         fin_host, c0 = [], 0
         for nbf in _chunk_sizes(len(gsub), nb):
             sub = gsub[c0 : c0 + nbf]
-            gi_, gl_ = idx_tensors([row_of[gi] for gi in sub],
-                                   fin_lens[c0 : c0 + nbf], nbf)
+            gi_, gl_ = idx_arrays([row_of[gi] for gi in sub],
+                                  fin_lens[c0 : c0 + nbf], nbf)
             c0 += nbf
             pad = nbf - len(sub)
             best = np.stack([rr[(gi, "best")]["consensus"][:wcls]
@@ -1133,10 +1157,9 @@ def _fill_bucket(genome, plans, gids, cfg, marr, instance_batch, scan_block,
                              + [-1] * pad, np.int32)
             svr = np.asarray([rr[(gi, "best")]["saved_r"] for gi in sub]
                              + [-1] * pad, np.int32)
-            fin_host.append(finalize_batch_packed(
-                cfg_f, gap_arrays, gi_, gl_, marr,
-                *(torch.as_tensor(x, device=device)
-                  for x in (best, sv, svl, svr))).cpu().numpy())
+            fin_host.append(fetch(sharded_fill(
+                shards, finalize_batch_packed, cfg_f, gi_, gl_, best, sv,
+                svl, svr)))
         fin_host = np.concatenate(fin_host)[: len(gsub)]
         gpad = cfg.max_gap_len - wcls
         for t, gi in enumerate(gsub):

@@ -12,7 +12,7 @@ from collections import Counter
 
 import torch
 
-from . import LAUNCHES, require_cuda
+from . import LAUNCHES, launch_device, require_cuda
 from ._build import check, launcher, stream
 
 _KEYS = ("local", "e2e", "start", "end", "n_mis")
@@ -60,7 +60,8 @@ def score_candidates(flat: torch.Tensor, reads: torch.Tensor,
     ``flat[cand : cand + L]`` must lie inside ``flat`` (the aligner clamps
     ``cand`` to ``[0, len(genome) - L - 1]`` of a padded genome); the kernel
     reads no byte of ``flat`` outside it."""
-    if flat.device.type == "cpu":
+    dev = launch_device("score_candidates", flat, reads, cand)
+    if dev.type == "cpu":
         return score_candidates_plain(flat, reads, cand, match, mismatch,
                                       gap_code)
     require_cuda(flat, "score_candidates")
@@ -73,19 +74,20 @@ def score_candidates(flat: torch.Tensor, reads: torch.Tensor,
                          "cand (B, C)")
     B, L = reads.shape
     C = cand.shape[1]
-    flat = flat.contiguous()
-    if flat.data_ptr() % 4:            # the kernel loads 4-byte words
-        flat = flat.clone()
-    reads = reads.contiguous()
-    cand = cand.contiguous()
-    # five planes, so each output is a contiguous (B, C) view
-    out = torch.empty((5, B * C), dtype=torch.int32, device=flat.device)
-    if B * C:
-        err = launcher("align_score")(
-            flat.data_ptr(), reads.data_ptr(), cand.data_ptr(),
-            out.data_ptr(), B * C, flat.numel(), C, L, match, mismatch,
-            gap_code, stream(flat.device))
-        check(err, "score_candidates")
-        LAUNCHES["align_score"] += 1
-        LAUNCHES_BY_C[C] += 1
+    with torch.cuda.device(dev):
+        flat = flat.contiguous()
+        if flat.data_ptr() % 4:            # the kernel loads 4-byte words
+            flat = flat.clone()
+        reads = reads.contiguous()
+        cand = cand.contiguous()
+        # five planes, so each output is a contiguous (B, C) view
+        out = torch.empty((5, B * C), dtype=torch.int32, device=dev)
+        if B * C:
+            err = launcher("align_score")(
+                flat.data_ptr(), reads.data_ptr(), cand.data_ptr(),
+                out.data_ptr(), B * C, flat.numel(), C, L, match, mismatch,
+                gap_code, stream(dev))
+            check(err, "score_candidates")
+            LAUNCHES["align_score"] += 1
+            LAUNCHES_BY_C[C] += 1
     return {k: out[i].view(B, C) for i, k in enumerate(_KEYS)}

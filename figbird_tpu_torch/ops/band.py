@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, LAUNCHES_BY_SHAPE, require_cuda
+from . import LAUNCHES, LAUNCHES_BY_SHAPE, launch_device, require_cuda
 from ._build import check, launcher, stream
 
 
@@ -181,7 +181,8 @@ def band_score_soft(codes: torch.Tensor, valid: torch.Tensor,
     """Soft-pass score (I, P, Wp): sum over valid j of
     log(max(A[p+j, c](1 - e_j) + e_j B[p+j, c], 1e-30)), c = read base j.
     codes/valid (I, P, L); A, B (I, R, 5) f32 with R >= Wp + L - 1."""
-    if codes.device.type == "cpu":
+    dev = launch_device("band_score_soft", codes, valid, A, B, e_pos)
+    if dev.type == "cpu":
         return band_score_soft_plain(codes, valid, A, B, e_pos, Wp)
     require_cuda(codes, "band_score_soft")
     _check_rows(codes, valid, "band_score_soft")
@@ -195,11 +196,11 @@ def band_score_soft(codes: torch.Tensor, valid: torch.Tensor,
     A = A.to(torch.float32).contiguous()
     B = B.to(torch.float32).contiguous()
     e_pos = e_pos.to(torch.float32).contiguous()
-    out = torch.empty((I, P, Wp), dtype=torch.float32, device=codes.device)
-    err = launcher("band_soft")(
-        codes.data_ptr(), valid.data_ptr(), A.data_ptr(), B.data_ptr(),
-        e_pos.data_ptr(), out.data_ptr(), I, P, L, R, Wp,
-        stream(codes.device))
+    with torch.cuda.device(dev):
+        out = torch.empty((I, P, Wp), dtype=torch.float32, device=dev)
+        err = launcher("band_soft")(
+            codes.data_ptr(), valid.data_ptr(), A.data_ptr(), B.data_ptr(),
+            e_pos.data_ptr(), out.data_ptr(), I, P, L, R, Wp, stream(dev))
     check(err, "band_score_soft")
     LAUNCHES["band_soft"] += 1
     LAUNCHES_BY_SHAPE["band_soft", P, Wp] += 1
@@ -209,7 +210,8 @@ def band_score_soft(codes: torch.Tensor, valid: torch.Tensor,
 def band_score(codes: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
                Wp: int) -> torch.Tensor:
     """Banded score (I, P, Wp) from K (I, R, 5L), R >= Wp + L - 1."""
-    if codes.device.type == "cpu":
+    dev = launch_device("band_score", codes, valid, K)
+    if dev.type == "cpu":
         return band_score_plain(codes, valid, K, Wp)
     require_cuda(codes, "band_score")
     _check_rows(codes, valid, "band_score")
@@ -219,10 +221,11 @@ def band_score(codes: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
         raise ValueError("band_score: K must be (I, R>=Wp+L-1, 5L)")
     codes, valid = codes.contiguous(), valid.contiguous()
     K = K.to(torch.float32).contiguous()
-    out = torch.empty((I, P, Wp), dtype=torch.float32, device=codes.device)
-    err = launcher("band_hard")(
-        codes.data_ptr(), valid.data_ptr(), K.data_ptr(), out.data_ptr(), I,
-        P, L, R, Wp, stream(codes.device))
+    with torch.cuda.device(dev):
+        out = torch.empty((I, P, Wp), dtype=torch.float32, device=dev)
+        err = launcher("band_hard")(
+            codes.data_ptr(), valid.data_ptr(), K.data_ptr(), out.data_ptr(),
+            I, P, L, R, Wp, stream(dev))
     check(err, "band_score")
     LAUNCHES["band_hard"] += 1
     LAUNCHES_BY_SHAPE["band_hard", P, Wp] += 1
@@ -236,7 +239,9 @@ def band_score_hard(codes: torch.Tensor, valid: torch.Tensor,
     """Hard-pass score (I, P, Wp): ``band_score`` on ``hard_K(gap_string, a,
     b, ln_et)``, K's entries built inside the kernel.  gap_string (I, R)
     int8 codes 0..5 with R >= Wp + L - 1; a, b (L,); ln_et (5, 5)."""
-    if codes.device.type == "cpu":
+    dev = launch_device("band_score_hard", codes, valid, gap_string, a, b,
+                        ln_et)
+    if dev.type == "cpu":
         return band_score_hard_plain(codes, valid, gap_string, a, b, ln_et,
                                      Wp)
     require_cuda(codes, "band_score_hard")
@@ -251,11 +256,12 @@ def band_score_hard(codes: torch.Tensor, valid: torch.Tensor,
     codes, valid = codes.contiguous(), valid.contiguous()
     gap_string = gap_string.contiguous()
     a, b, ln_et = (x.to(torch.float32).contiguous() for x in (a, b, ln_et))
-    out = torch.empty((I, P, Wp), dtype=torch.float32, device=codes.device)
-    err = launcher("band_hard_gap")(
-        codes.data_ptr(), valid.data_ptr(), gap_string.data_ptr(),
-        a.data_ptr(), b.data_ptr(), ln_et.data_ptr(), out.data_ptr(), I, P,
-        L, R, Wp, stream(codes.device))
+    with torch.cuda.device(dev):
+        out = torch.empty((I, P, Wp), dtype=torch.float32, device=dev)
+        err = launcher("band_hard_gap")(
+            codes.data_ptr(), valid.data_ptr(), gap_string.data_ptr(),
+            a.data_ptr(), b.data_ptr(), ln_et.data_ptr(), out.data_ptr(), I,
+            P, L, R, Wp, stream(dev))
     check(err, "band_score_hard")
     LAUNCHES["band_hard"] += 1
     LAUNCHES_BY_SHAPE["band_hard", P, Wp] += 1
@@ -273,16 +279,18 @@ def fold_counts(weights: torch.Tensor, codes: torch.Tensor,
             or vals.shape != codes.shape or not Pw + L - 1 <= W <= Pw + L:
         raise ValueError("fold_counts: codes int8 (I, P, L), vals like "
                          "codes, Pw + L - 1 <= W <= Pw + L")
-    if weights.device.type == "cpu":
+    dev = launch_device("fold_counts", weights, codes, vals)
+    if dev.type == "cpu":
         return fold_counts_plain(weights, codes, vals, W)
     require_cuda(weights, "fold_counts")
     weights = weights.to(torch.float32).contiguous()
     codes = codes.contiguous()
     vals = vals.to(torch.float32).contiguous()
-    out = torch.empty((I, W, 5), dtype=torch.float32, device=weights.device)
-    err = launcher("fold")(
-        weights.data_ptr(), codes.data_ptr(), vals.data_ptr(), out.data_ptr(),
-        I, P, L, Pw, W, stream(weights.device))
+    with torch.cuda.device(dev):
+        out = torch.empty((I, W, 5), dtype=torch.float32, device=dev)
+        err = launcher("fold")(
+            weights.data_ptr(), codes.data_ptr(), vals.data_ptr(),
+            out.data_ptr(), I, P, L, Pw, W, stream(dev))
     check(err, "fold_counts")
     LAUNCHES["fold"] += 1
     LAUNCHES_BY_SHAPE["fold", P, Pw] += 1
@@ -303,16 +311,18 @@ def cascade_counts(lw: torch.Tensor, codes: torch.Tensor, vals: torch.Tensor,
             or not 1 <= m <= 6:
         raise ValueError("cascade_counts: codes int8 (I, P, L), vals like "
                          "codes, Pw + L - 1 <= W <= Pw + L, 1 <= m <= 6")
-    if lw.device.type == "cpu":
+    dev = launch_device("cascade_counts", lw, codes, vals)
+    if dev.type == "cpu":
         return cascade_counts_plain(lw, codes, vals, W, m, shift, cut)
     require_cuda(lw, "cascade_counts")
     lw = lw.to(torch.float32).contiguous()
     codes = codes.contiguous()
     vals = vals.to(torch.float32).contiguous()
-    out = torch.empty((I, m, W, 5), dtype=torch.float32, device=lw.device)
-    err = launcher("cascade")(
-        lw.data_ptr(), codes.data_ptr(), vals.data_ptr(), out.data_ptr(), I,
-        P, L, Pw, W, m, shift, cut, stream(lw.device))
+    with torch.cuda.device(dev):
+        out = torch.empty((I, m, W, 5), dtype=torch.float32, device=dev)
+        err = launcher("cascade")(
+            lw.data_ptr(), codes.data_ptr(), vals.data_ptr(), out.data_ptr(),
+            I, P, L, Pw, W, m, shift, cut, stream(dev))
     check(err, "cascade_counts")
     LAUNCHES["cascade"] += 1
     LAUNCHES_BY_SHAPE["cascade", P, Pw] += 1

@@ -9,8 +9,10 @@ from the one-anchored pairs' free mates.  ``Pipeline.run`` is the iteration
 schedule (RunFigbird.sh:534-775) gated on the remaining-N count, and with a
 ``workdir`` every iteration writes the reference's artifacts
 (``Temp/gapInfo.txt``, ``Individual_gaps/gapout_<n>.txt``,
-``Filled_Scaffolds/<n>filledContigs.fa``, ...).  The mesh and multi-host
-options are a later slice of the port and raise ``NotImplementedError``.
+``Filled_Scaffolds/<n>filledContigs.fa``, ...).  ``mesh`` runs the aligner
+and the fill over a device mesh (``parallel.mesh``), ``distributed`` over
+several processes (``parallel.distributed``); both give the single-device
+results.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from . import dtypes
 from .align import pairing
-from .align.core import Aligner, AlignParams, e2e_params
+from .align.core import Aligner, AlignParams, e2e_params, host_flat_ok
 from .align.index import build_index
 from .combine import combine_gap_history, write_individual_gaps
 from .config import INSERT_FRAC
@@ -34,12 +36,10 @@ from .genome import Genome
 from .io.fasta import read_fasta, write_fasta
 from .io.fastq import read_fastq
 from .model import error_model
-from .ops import entry_device
+from .ops import canonical_device, entry_device
+from .parallel import distributed as dist
 from .triage import assign
 from .utils import trace
-
-_LATER = ("is not ported yet; see ROADMAP.md, queue 1 item 11 (the port "
-          "runs on one device)")
 
 
 @dataclass
@@ -98,6 +98,52 @@ def _model_indel_events(m, a1, a2, r1, r2):
             np.array(del_ev, np.int64).reshape(-1, 4))
 
 
+def _learn_model_host(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
+                      partial_len, input_mean=0.0, holds_end=True):
+    """Host model learning from the alignments' mismatch masks: the path
+    of a contig-sharded aligner past ``host_flat_ok``, which has no device
+    statistics.  Returns (model, n_model)."""
+    m = pt.model
+    n_model = int(m.sum())
+    rows = np.flatnonzero(m)
+    o1m, o2m = _oriented_rows(r1, a1, rows), _oriented_rows(r2, a2, rows)
+    reads = np.concatenate([o1m, o2m])
+    lens = np.concatenate([r1.length[m], r2.length[m]])
+    wins = np.concatenate([a1["pos"][m], a2["pos"][m]]).astype(np.int64)
+    strands = np.concatenate([a1["strand"][m], a2["strand"][m]])
+    mism = np.concatenate([a1["mism"][m], a2["mism"][m]])
+    clips_s = np.concatenate([a1["clip_start"][m], a2["clip_start"][m]])
+    clips_e = np.concatenate([a1["clip_end"][m], a2["clip_end"][m]])
+    clr = contig_lengths[np.concatenate([pt.contig[m, 0], pt.contig[m, 1]])]
+    st = error_model.collect_stats(
+        idx.flat, reads, lens, wins, strands, mism,
+        inserts=np.concatenate([pt.insert[m], np.zeros(n_model, np.int64)]),
+        contig_len_of_read=np.concatenate([clr[:n_model],
+                                           np.zeros(n_model)]),
+        input_mean=input_mean,
+        max_read_length=int(max(r1.seq.shape[1], r2.seq.shape[1])),
+        indel_events=_model_indel_events(m, a1, a2, r1, r2),
+        clip_start=clips_s, clip_end=clips_e)
+    model = error_model.finalize_model(st, contig_lengths,
+                                       partial_flag=partial_flag,
+                                       partial_len=partial_len)
+    # gapProbs histogram from mate-2 error probabilities; the reference's
+    # per-pair flush never counts the LAST model pair (Figbird.cpp:1303-1338)
+    L2 = r2.seq.shape[1]
+    win2 = a2["pos"][m].astype(np.int64)
+    from2 = idx.flat[win2[:, None] + np.arange(L2)[None, :]]
+    lg2 = error_model.alignment_error_log10(
+        model, o2m, r2.length[m], a2["strand"][m], a2["mism"][m], from2,
+        clip_start=a2["clip_start"][m], clip_end=a2["clip_end"][m])
+    if holds_end and len(lg2):
+        lg2 = lg2[:-1]
+    hist = error_model.gap_prob_hist(lg2)
+    model.gap_prob_cutoff = error_model.compute_gap_prob_cutoff(model,
+                                                                hist=hist)
+    model.snapshot = (st, hist)
+    return model, n_model
+
+
 def _indel_mism_rows(a: dict, rows: np.ndarray, L: int) -> np.ndarray:
     """Mismatch masks for indel-tier rows from their banded tracebacks."""
     if "mism" in a:
@@ -114,14 +160,31 @@ def _indel_mism_rows(a: dict, rows: np.ndarray, L: int) -> np.ndarray:
 
 
 def _learn_model(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
-                 partial_len, aligner, input_mean=0.0):
+                 partial_len, aligner=None, input_mean=0.0, holds_end=True):
+    """The model from this iteration's alignments: on the device where the
+    aligner kept its read batches (``stats_handle``), else on the host.
+    ``holds_end``: this process holds the global last read pair (the one
+    the gap-prob histogram leaves out).  Returns (model, n_model)."""
+    if int(np.asarray(pt.model).sum()) == 0:
+        return None, 0
+    if aligner is not None and "stats_handle" in a1 \
+            and "stats_handle" in a2:
+        return _learn_model_device(idx, pt, a1, a2, r1, r2, contig_lengths,
+                                   partial_flag, partial_len, aligner,
+                                   input_mean, holds_end)
+    return _learn_model_host(idx, pt, a1, a2, r1, r2, contig_lengths,
+                             partial_flag, partial_len, input_mean, holds_end)
+
+
+def _learn_model_device(idx, pt, a1, a2, r1, r2, contig_lengths,
+                        partial_flag, partial_len, aligner, input_mean=0.0,
+                        holds_end=True):
     """Device-side model learning over the aligner's resident read batches
     (sufficient statistics as masked device sums; the rare indel-tier rows
-    go through the host ``collect_stats``).  Returns (model, n_model)."""
+    go through the host ``collect_stats``), the statistics all-reduced
+    across processes.  Returns (model, n_model)."""
     m = np.asarray(pt.model)
     n_model = int(m.sum())
-    if n_model == 0:
-        return None, 0
     Lmax = int(max(r1.seq.shape[1], r2.seq.shape[1]))
     st = error_model.ModelStats(Lmax)
 
@@ -179,15 +242,23 @@ def _learn_model(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
                                 minlength=Lmax)[:Lmax]
         len_hist += np.bincount(np.clip(ln - 1, 0, Lmax - 1),
                                 minlength=Lmax)[:Lmax]
+    # merge point #1: the statistics all-reduced across processes before
+    # finalisation, so the model is learned once, globally
+    st = dist.allreduce_stats(st)
+    if dist.is_distributed():
+        n_model = int(sum(dist.allgather_obj(n_model)))
     model = error_model.finalize_model(st, contig_lengths,
                                        partial_flag=partial_flag,
                                        partial_len=partial_len)
 
     # gapProbs histogram from mate-2 error probabilities; the reference's
-    # per-pair flush never counts the LAST model pair (Figbird.cpp:1303-1338)
+    # per-pair flush never counts the LAST model pair (Figbird.cpp:1303-
+    # 1338): the process holding the global end of the read set drops it
     indel2 = np.asarray(a2.get("indel", zero))
-    m_hist = m.copy()
-    m_hist[np.flatnonzero(m)[-1]] = False
+    m_hist = m
+    if holds_end and m.any():
+        m_hist = m.copy()
+        m_hist[np.flatnonzero(m)[-1]] = False
     lg = aligner.model_err_log10(a2["stats_handle"], a2["pos"], a2["strand"],
                                  m & ~indel2, model, clip_s=a2["clip_start"],
                                  clip_e=a2["clip_end"])
@@ -203,6 +274,8 @@ def _learn_model(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
             clip_start=a2["clip_start"][rows2],
             clip_end=a2["clip_end"][rows2])])
     hist = error_model.gap_prob_hist(vals)
+    if dist.is_distributed():
+        hist = np.sum(dist.allgather_obj(hist), axis=0)
     model.gap_prob_cutoff = error_model.compute_gap_prob_cutoff(model,
                                                                 hist=hist)
     model.snapshot = (st, hist)
@@ -210,12 +283,22 @@ def _learn_model(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
 
 
 class Pipeline:
-    """Stateful pipeline over an in-memory genome + read libraries, on one
-    device.  ``device=None`` is the card, and an error where there is none;
+    """Stateful pipeline over an in-memory genome + read libraries.
+    ``device=None`` is the card, and an error where there is none;
     ``device="cpu"`` asks for the CPU, where the kernels' plain versions
     run.  ``workdir``: where each iteration writes its artifacts and
     ``run`` the combined gaps and the final assembly (the output tree of
-    RunFigbird.sh)."""
+    RunFigbird.sh).
+
+    ``mesh`` (``parallel.make_mesh``): alignment batches and fill instances
+    split over its reads axis; a genome axis above 1 shards the index
+    (``aligner_kwargs["genome_shard"]``).  ``device`` is then the mesh's
+    first device.  ``distributed``: each process keeps a contiguous shard
+    of every read library, learns the model through an all-reduce of the
+    statistics, unions the per-gap bundles, fills a strided gap subset and
+    all-gathers the strings (default: on when a process group of more than
+    one process is initialised).  Either gives the single-device results
+    bit for bit."""
 
     def __init__(self, cfg, genome, libs, align_params: AlignParams =
                  AlignParams(), min_model_pairs: int = 500,
@@ -223,18 +306,32 @@ class Pipeline:
                  fill_kwargs: dict | None = None,
                  aligner_kwargs: dict | None = None, device=None,
                  workdir=None, mesh=None, distributed: bool | None = None):
-        if mesh is not None or distributed:
-            raise NotImplementedError(
-                "mesh and multi-host execution " + _LATER)
         cfg.validate()
         self.cfg = cfg
+        if mesh is not None:
+            if device is not None and canonical_device(device) != mesh.first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.first}")
+            device = mesh.first
         self.device = entry_device(device)
+        self.mesh = mesh
+        self.dist = dist.is_distributed() if distributed is None \
+            else distributed
         self.genome = genome
         self.libs = []
+        self._holds_end: list[bool] = []  # owns the global last read pair
         for lib, (r1, r2) in zip(cfg.read_pairs, libs):
             if lib.is_reverse:  # RC both files of RF libraries
                 r1, r2 = r1.revcomp(), r2.revcomp()
+            holds_end = True
+            if self.dist:  # host-level read decomposition
+                n_total = len(r1)
+                sl = dist.shard_reads(n_total)
+                holds_end = sl.stop == n_total and sl.start < n_total
+                keep = np.arange(sl.start, sl.stop)
+                r1, r2 = r1.take(keep), r2.take(keep)
             self.libs.append((r1, r2))
+            self._holds_end.append(holds_end)
         self.workdir = Path(workdir) if workdir else None
         if self.workdir:
             for d in ("Filled_Scaffolds", "Individual_gaps", "Temp"):
@@ -260,14 +357,25 @@ class Pipeline:
         clips, so the pass's model set excludes clipped reads."""
         r1, r2 = self.libs[lib_i]
         t0 = time.time()
-        idx = build_index(genome, k=15, device_tables=True)
+        gshard = self.mesh is not None and self.mesh.shape["genome"] > 1
+        # contig-range shards build their local tables from the flat alone:
+        # no host sort of the global table (code-range shards need it)
+        total_bases = sum(int(n) for n in genome.lengths)
+        contig_big = gshard and (
+            self.aligner_kwargs.get("genome_shard") == "contig"
+            or not host_flat_ok(total_bases))
+        idx = build_index(genome, k=15,
+                          device_tables=(not gshard) or contig_big)
         self.timer.add("index_build", time.time() - t0)
         params = e2e_params(self.align_params) if end_to_end \
             else self.align_params
-        # model learning runs on the device: no mismatch-mask copy
-        params = replace(params, want_mism=False)
+        # model learning runs on the device: no mismatch-mask copy, unless
+        # the genome is past the replicated flat's budget (host learning)
+        if host_flat_ok(total_bases):
+            params = replace(params, want_mism=False)
         t0 = time.time()
-        al = Aligner(idx, params, device=self.device, **self.aligner_kwargs)
+        al = Aligner(idx, params, device=self.device, mesh=self.mesh,
+                     **self.aligner_kwargs)
         self.timer.add("aligner_init", time.time() - t0)
         t0 = time.time()
         a1, a2 = al.align_many([(r1.seq, r1.length), (r2.seq, r2.length)],
@@ -328,7 +436,7 @@ class Pipeline:
                 idx2, pt2, b1, b2, *self.libs[lib_i], genome2.lengths,
                 partial_flag=False, partial_len=partial_len, aligner=al2,
                 input_mean=(t_lib.avg_insert_size if cfgp.set_inputmean
-                            else 0.0))
+                            else 0.0), holds_end=self._holds_end[lib_i])
             if m2 is not None and nm2 >= self.min_model_pairs:
                 model = m2
                 if maxD2 > 250:
@@ -341,6 +449,9 @@ class Pipeline:
             tri2 = assign.Triage(gaps2, max_distance=maxD2,
                                  read_mean=read_mean, is_jump=t_lib.is_jump)
             tri2.collect_unmapped(pt2, *self.libs[lib_i])
+        u_bundles = tri2.bundles
+        if self.dist:  # merge point #2a: the processes' bundles unioned
+            u_bundles = dist.merge_bundles(u_bundles)
         # the reduced genome keeps whole gap-bearing contigs in order, so
         # its gap list is the full one with contigs renumbered: check that
         if remap is not None:
@@ -355,7 +466,7 @@ class Pipeline:
                         f"({g2.contig},{g2.start},{g2.length}) -> contig "
                         f"{int(remap[g2.contig])} vs full ({g.contig},"
                         f"{g.start},{g.length})")
-        for bu, b in zip(tri2.bundles, bundles):
+        for bu, b in zip(u_bundles, bundles):
             b.u_seq, b.u_pos, b.u_rev = bu.u_seq, bu.u_pos, bu.u_rev
         return model, pt2
 
@@ -394,7 +505,8 @@ class Pipeline:
                     idx, pt, a1, a2, r1, r2, genome.lengths,
                     partial_flag=(mode == "p"), partial_len=partial_len,
                     aligner=al, input_mean=(m_lib.avg_insert_size
-                                            if cfgp.set_inputmean else 0.0))
+                                            if cfgp.set_inputmean else 0.0),
+                    holds_end=self._holds_end[mi])
                 if model is None or n_model < self.min_model_pairs:
                     model = self.saved_model
                     if model is None:
@@ -413,6 +525,8 @@ class Pipeline:
                                 is_jump=False)
             tri.collect_partial(pt, r1, r2, align1=a1, align2=a2)
         bundles = tri.bundles
+        if self.dist:  # merge point #2a: the processes' bundles unioned
+            bundles = dist.merge_bundles(bundles)
         n_pairs = len(r1)
         reductions = {}
         if self.use_read_reduction and mi not in self._reduced:
@@ -429,11 +543,26 @@ class Pipeline:
         self.last_model = model
 
         with self.timer.stage("fill", len(gaps)):
-            res = fill_gaps(genome, gaps, bundles, model,
-                            partial_mode=(mode == "p"),
-                            partial_len=partial_len,
-                            neg_overlap=cfgp.gaplen_negative_overlap,
-                            device=self.device, **self.fill_kwargs)
+            fill_kw = dict(partial_mode=(mode == "p"),
+                           partial_len=partial_len,
+                           neg_overlap=cfgp.gaplen_negative_overlap,
+                           device=self.device, mesh=self.mesh,
+                           **self.fill_kwargs)
+            if self.dist and len(gaps):
+                # merge point #2b: each process fills a strided gap subset
+                # and the strings are all-gathered
+                sub = dist.my_gap_subset(len(gaps))
+                res = fill_gaps(genome, [gaps[i] for i in sub],
+                                [bundles[i] for i in sub], model, **fill_kw)
+                mine = {int(gi): (res.gap_strings[k], int(res.gaptofill[k]))
+                        for k, gi in enumerate(sub)}
+                allv = dist.allgather_gap_strings(len(gaps), mine)
+                res.gap_strings = [v[0] for v in allv]
+                res.gaptofill = np.asarray([v[1] for v in allv], np.int64)
+                res.placements = None  # per-process partial; not meaningful
+                res.mim = None
+            else:
+                res = fill_gaps(genome, gaps, bundles, model, **fill_kw)
         with self.timer.stage("splice"):
             new_genome = genome.splice_gaps(gaps, res.gap_strings,
                                             list(res.gaptofill))

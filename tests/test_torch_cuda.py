@@ -369,3 +369,120 @@ def test_e2e_align_batch_card_equals_cpu(dev):
     for k in cpu:
         assert torch.equal(gpu[k], cpu[k]), k
     assert not cpu["aligned"].all() and cpu["aligned"].any()
+
+
+def _each_kernel(dev):
+    """Every wrapper once on ``dev`` at a small shape: (name, kernel
+    output, plain version's output)."""
+    codes, valid, probs, eprobs, e_pos, K, g, a, b, ln_et = _band_inputs(
+        dev, 21, 2, 9, 12, 16)
+    lw, ccodes, vals = (torch.as_tensor(t, device=dev) for t in count_inputs(
+        22, 2, 9, 16, 12, False, True))
+    x = torch.as_tensor(count_inputs(22, 2, 9, 16, 12, False, False)[0],
+                        device=dev)
+    W = 16 + 12
+    rng = np.random.default_rng(23)
+    flat = torch.as_tensor(rng.integers(0, 5, 4000).astype(np.int8),
+                           device=dev)
+    reads = torch.as_tensor(rng.integers(0, 5, (10, 30)).astype(np.int8),
+                            device=dev)
+    cand = torch.as_tensor(rng.integers(0, 3900, (10, 4)).astype(np.int32),
+                           device=dev)
+    return [
+        ("band_soft", band.band_score_soft(codes, valid, probs, eprobs, e_pos,
+                                           16),
+         band.band_score_soft_plain(codes, valid, probs, eprobs, e_pos, 16)),
+        ("band_hard", band.band_score_hard(codes, valid, g, a, b, ln_et, 16),
+         band.band_score_hard_plain(codes, valid, g, a, b, ln_et, 16)),
+        ("fold", band.fold_counts(x, ccodes, vals, W),
+         band.fold_counts_plain(x, ccodes, vals, W)),
+        ("cascade", band.cascade_counts(lw, ccodes, vals, W, 6, SHIFT, CUT),
+         band.cascade_counts_plain(lw, ccodes, vals, W, 6, SHIFT, CUT)),
+        ("align_score",
+         align_score.score_candidates(flat, reads, cand, 2, -6, 4)["local"],
+         align_score.score_candidates_plain(flat, reads, cand, 2, -6,
+                                            4)["local"]),
+    ]
+
+
+def test_kernels_launch_on_the_tensors_device():
+    """Each kernel on the last card while the first is current: it launches
+    there (under ``torch.cuda.device`` of its tensors: the launcher's
+    attributes and stream belong to that card), agrees with its plain
+    version, and leaves the current device as it was.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    before = dict(ops.LAUNCHES)
+    tol = {"band_soft": (1e-5, 1e-3), "band_hard": (1e-5, 1e-4),
+           "fold": (2e-6, 0.0), "cascade": (2e-6, 0.0),
+           "align_score": (0.0, 0.0)}
+    for name, got, want in _each_kernel(dev):
+        torch.cuda.synchronize(dev)
+        assert got.device == dev, name
+        _close(got, want, *tol[name])
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        k: 1 for k in before}
+    assert torch.cuda.current_device() == 0
+
+
+def test_wrappers_refuse_mixed_devices(dev):
+    """A wrapper given tensors on the card and on the CPU raises
+    ``ValueError`` before it launches anything."""
+    before = dict(ops.LAUNCHES)
+    codes, valid, probs, eprobs, e_pos, K, g, a, b, ln_et = _band_inputs(
+        dev, 24, 1, 4, 8, 8)
+    for call in (
+            lambda: band.band_score_soft(codes, valid.cpu(), probs, eprobs,
+                                         e_pos, 8),
+            lambda: band.band_score(codes, valid, K.cpu(), 8),
+            lambda: band.band_score_hard(codes, valid, g, a, b, ln_et.cpu(),
+                                         8),
+            lambda: band.fold_counts(K[:, :4, :12].cpu(), codes, valid.float(),
+                                     19),
+            lambda: band.cascade_counts(K[:, :4, :12], codes.cpu(),
+                                        valid.float(), 19, 2, SHIFT, CUT),
+            lambda: align_score.score_candidates(
+                torch.zeros(300, dtype=torch.int8, device=dev),
+                codes[0].cpu(), torch.zeros((4, 2), dtype=torch.int32,
+                                            device=dev), 2, -6, 4)):
+        with pytest.raises(ValueError, match="more than one device"):
+            call()
+    assert dict(ops.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("path", ["code", "contig"])
+def test_sharded_aligners_on_repeated_card(dev, path):
+    """Both genome-sharded aligners on a mesh of 8 x ``cuda:0`` (reads 2,
+    genome 4; the shards run one after another on the card) equal the
+    replicated ``use_buckets=False`` aligner on the card, local and
+    end-to-end; K5 launched for every shard and strand."""
+    from figbird_tpu_torch.align import core
+    from figbird_tpu_torch.align.index import build_index
+    from figbird_tpu_torch.parallel import make_mesh
+    from figbird_tpu_torch.simulate import SimConfig, simulate
+
+    sim = simulate(SimConfig(genome_len=80_000, n_contigs=6, n_gaps=4,
+                             read_len=76, insert_mean=250, insert_sd=20,
+                             coverage=3.0, error_rate=0.004, seed=17))
+    idx = build_index(sim.draft, k=15)
+    r = sim.reads1
+    mesh = make_mesh(8, 4, devices=[dev] * 8)
+    for p in (core.AlignParams(), core.e2e_params(core.AlignParams())):
+        kw = dict(batch_size=1024, two_tier=False, indel_tier=False)
+        before = ops.LAUNCHES["align_score"]
+        out_sh = core.Aligner(idx, p, mesh=mesh, genome_shard=path,
+                              contig_shard_threshold=1, **kw).align(
+            r.seq, r.length)
+        # one batch of two reads shards, four genome shards, two strands
+        assert ops.LAUNCHES["align_score"] - before == 2 * 4 * 2
+        out_ref = core.Aligner(idx, p, use_buckets=False, device=dev,
+                               **kw).align(r.seq, r.length)
+        for k in ("score", "aligned", "unique", "second"):
+            np.testing.assert_array_equal(out_sh[k], out_ref[k], err_msg=k)
+        al = out_ref["aligned"] | (out_ref["score"] > -32000)
+        for k in ("pos", "strand", "clip_start", "clip_end", "n_mis", "alen",
+                  "mism"):
+            np.testing.assert_array_equal(out_sh[k][al], out_ref[k][al],
+                                          err_msg=k)

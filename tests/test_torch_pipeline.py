@@ -296,6 +296,9 @@ def test_port_sources_import_nothing_of_the_reference():
     files = sorted(Path(REPO, "figbird_tpu_torch").rglob("*.py")) \
         + [Path(REPO, "chip_smoke.py"), Path(REPO, "time_counts.py")]
     assert len(files) > 20
+    for mod in ("mesh", "sharded", "distributed"):
+        assert Path(REPO, "figbird_tpu_torch", "parallel", f"{mod}.py") \
+            in files, mod
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert not bad, bad

@@ -160,23 +160,53 @@ def test_schedule_equal(case, tmp_path):
             == (tmp_path / "ref" / f).read_bytes(), f
 
 
-def test_unported_options_raise(tmp_path, monkeypatch):
+def test_cli_device_and_mesh_options(tmp_path, monkeypatch, capsys):
     """The CLI raises without a card unless ``--device cpu`` asks for the
-    CPU; the mesh options of the CLI and of ``Pipeline`` raise
-    NotImplementedError."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        t_main.main([str(tmp_path / "Config.json")])
-    for flags in (["--mesh-devices", "2"], ["--genome-shards", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            t_main.main([str(tmp_path / "Config.json"), "--device", "cpu",
-                         *flags])
-    cfg = convert.figbird_config(FigbirdConfig("", "", [_lib(200)]))
-    draft = convert.genome(Genome(["c"], [np.zeros(100, np.int8)]))
-    libs = [(convert.read_batch(_reads(0)), convert.read_batch(_reads(1)))]
-    for kw in ({"mesh": object()}, {"distributed": True}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            t_pipeline.Pipeline(cfg, draft, libs, device="cpu", **kw)
+    CPU, and for a mesh of more cards than are visible; ``--device cpu
+    --mesh-devices 4 --genome-shards 2`` runs an iteration through
+    ``main`` on the CLI case's 20 kb dataset, over a (2, 2) mesh of CPU
+    devices (code-range shards), with ``Pipeline(distributed=True)`` and no
+    process group: one process."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_main.main([str(tmp_path / "Config.json")])
+    cfg = _write_dataset(tmp_path, jump=False, genome_len=20_000,
+                         n_contigs=1, n_gaps=4, gap_len_range=(8, 40), seed=5)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 devices asked for, 1 avail"):
+            t_main.main([str(cfg), "--mesh-devices", "2"])
+    seen = []
+
+    class Small(t_pipeline.Pipeline):
+        """The CLI case's small batch and capped scan, as one process of a
+        multi-process run."""
+
+        def __init__(self, *args, **kw):
+            kw["aligner_kwargs"] = {**kw["aligner_kwargs"],
+                                    "batch_size": 1024}
+            super().__init__(*args, fill_kwargs={"max_scan_lengths": 16,
+                                                 "instance_batch": 16},
+                             distributed=True, **kw)
+            seen.append(self)
+
+    monkeypatch.setattr(t_pipeline, "Pipeline", Small)
+    assert t_main.main([str(cfg), "--device", "cpu", "--mesh-devices", "4",
+                        "--genome-shards", "2", "--max-iterations", "1"]) == 0
+    err = capsys.readouterr().err
+    assert "# mesh: {'reads': 2, 'genome': 2} genome_shard=auto" in err
+    assert "# itr 1 [p lib0]: 4 gaps" in err
+    pipe, = seen
+    assert pipe.mesh.shape == {"reads": 2, "genome": 2}
+    assert pipe.aligner_kwargs["genome_shard"] == "auto"
+    assert pipe.dist and pipe._holds_end == [True]
+    st, = pipe.result.iterations
+    assert 0 < st.n_after < st.n_before
+    # a multi-process run keeps no per-read placements: no alignment_1.txt
+    assert _tree(tmp_path / "Figbird") == [
+        str(Path(f)) for f in TREE_1 if f != "Individual_gaps/alignment_1.txt"]
 
 
 def _write_dataset(out: Path, jump: bool, **sim_kw) -> Path:
@@ -250,9 +280,10 @@ _CLI = textwrap.dedent("""
 
     class _Small(tp.Pipeline):
         def __init__(self, *args, **kw):
+            kw["aligner_kwargs"] = {**kw["aligner_kwargs"],
+                                    "batch_size": 2048}
             super().__init__(*args, fill_kwargs={"max_scan_lengths": 16,
-                                                 "instance_batch": 16},
-                             aligner_kwargs={"batch_size": 2048}, **kw)
+                                                 "instance_batch": 16}, **kw)
 
     tp.Pipeline = _Small
     from figbird_tpu_torch.__main__ import main
