@@ -100,6 +100,37 @@ Phases (every one must pass; none is caught):
    (``two_process_launches``), each u row the mesh u-iteration's at its
    shape (``mesh_launches``), and K5's row the sharded aligners' launches
    of phase 7a (``mesh_aligner_launches``).
+9. SAM — the SAM-injected fills (``io.write_sam`` -> ``io.read_sam_pairs``
+   -> pair table -> host model -> triage -> ``fill_gaps(reference_exact=
+   True)``).  (a) tests/test_golden.py's simulation: both mates aligned on
+   the card (K5), written and read back (the aligned flags, and on the
+   aligned records strand, pos, clips and unique, equal to the aligner's),
+   the p fill on the card and on the CPU: gap strings, gaptofill and
+   spliced contigs equal, K1-K4 launched on the card.  (b)
+   tests/test_golden_unmapped.py's flow (insert 600, maxD2 690): a local
+   and an end-to-end SAM, the model from the latter, partial and unmapped
+   triage merged, the u fill on the card: N reduced, filled-base accuracy
+   >= 0.95, K1-K4 launched.  (c) bench.py's dataset (455,444 records)
+   through a SAM: write and read seconds printed, the p fill on the card
+   at accuracy >= 0.95 with N reduced, and the number of its gap strings
+   equal to the same stages fed the aligner's outputs directly (not
+   asserted: MD tags cannot carry mismatches on soft-clipped tails).
+10. large gaps — one library with a gap-length tail (1 Mb, 40 gaps from
+   the simulator's lognormal, insert 600, 80x): ``run_iteration("p", 0)``
+   then ``run_iteration("u", 0)`` on the card, the launch counts set to 0
+   just before each and read just after: all five kernels launched in the
+   u-iteration, N reduced, at least 4 of its gap plans with the large-gap
+   flag and K1 launched at 1,024 reads; walls, stages, fill stats,
+   launches by shape and accuracy on the large gaps and the rest printed,
+   and the number of gap strings equal to ``reference_exact=True`` on the
+   u-iteration's own fill inputs (not asserted).  (b) The large gap with
+   the most unmapped reads above 128, alone through ``fill_gaps`` with the
+   u-iteration's model and ``max_scan_lengths=4``, on the card and on the
+   CPU: gap string, gaptofill and fill stats equal.
+   On the kernels line every unmapped row carries the u-iteration's
+   launches at its shape (``large_gap_launches``), and each row above 128
+   reads those at its read count by positions
+   (``large_gap_launches_by_positions``).
 
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
@@ -109,6 +140,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1363,6 +1395,336 @@ def phase_two_processes(sim, timeout=300):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+# tests/test_golden.py's simulation; tests/test_golden_unmapped.py's insert
+GOLDEN_SIM = dict(genome_len=60_000, n_contigs=2, n_gaps=6,
+                  gap_len_range=(8, 60), read_len=101, insert_mean=300,
+                  insert_sd=25, coverage=15.0, error_rate=0.003, seed=7)
+GOLDEN_U_SIM = dict(GOLDEN_SIM, insert_mean=600, insert_sd=40)
+ROUND_TRIP = ("aligned", "strand", "pos", "clip_start", "clip_end", "unique")
+
+
+def sam_round_trip(sim, idx, params, max_d, path, what, check=True):
+    """Align both mates on the card, write the SAM with the pair table's
+    fields, read it back.  ``check``: the records read back carry the
+    aligner's aligned flags everywhere and its placement on the aligned rows
+    (tests/test_sam.py's round trip).  Returns the aligner's dicts, what was
+    read back, and the write and read seconds."""
+    from figbird_tpu_torch.align import Aligner, build_pair_table
+    from figbird_tpu_torch.io import read_sam_pairs, write_sam
+
+    r1, r2 = sim.reads1, sim.reads2
+    a1, a2 = Aligner(idx, params, device=DEV).align_many(
+        [(r1.seq, r1.length), (r2.seq, r2.length)])
+    pt = build_pair_table(idx, a1, a2, r1.length, r2.length, max_d)
+    t0 = time.time()
+    n = write_sam(path, idx, sim.draft.names, r1, r2, a1, a2, pt=pt)
+    t_write = time.time() - t0
+    t0 = time.time()
+    back = read_sam_pairs(path, idx, sim.draft.names)
+    t_read = time.time() - t0
+    same = {}
+    for a, b in ((a1, back[2]), (a2, back[3])):
+        m = a["aligned"]
+        same["aligned"] = same.get("aligned", 0) + int(
+            (a["aligned"] == b["aligned"]).sum())
+        for k in ROUND_TRIP[1:]:
+            same[k] = same.get(k, 0) + int((a[k][m] == b[k][m]).sum())
+    n_al = int(a1["aligned"].sum() + a2["aligned"].sum())
+    log(f"sam {what}: {n} records ({Path(path).stat().st_size / 1e6:.1f} MB) "
+        f"written in {t_write:.2f}s, read back in {t_read:.2f}s; fields "
+        f"equal to the aligner's on its {n_al} aligned records {same} "
+        f"(aligned: of all {2 * len(r1)})")
+    if check:
+        assert same["aligned"] == 2 * len(r1), f"{what}: aligned flags differ"
+        bad = [k for k in ROUND_TRIP[1:] if same[k] != n_al]
+        assert not bad, f"{what}: fields read back differ: {bad}"
+    return (a1, a2), back, t_write, t_read
+
+
+def sam_bundles(idx, draft, back, insert, partial_len=101, e2e=None):
+    """tests/test_golden.py's post-alignment stages from what a SAM read
+    back: pair table, host model (``_learn_model`` without an aligner) and
+    partial triage.  ``e2e`` (the unmapped flow): the end-to-end SAM's read
+    back, whose pairs give the model and the unmapped mates (merged into
+    the partial bundles).  Returns the gaps, bundles and model."""
+    from figbird_tpu_torch.align import build_pair_table
+    from figbird_tpu_torch.pipeline import _learn_model
+    from figbird_tpu_torch.triage import Triage
+
+    r1, r2, a1, a2 = back
+    pt = build_pair_table(idx, a1, a2, r1.length, r2.length, insert)
+    gaps = draft.find_gaps()
+    tri = Triage(gaps, max_distance=insert, read_mean=insert, is_jump=False)
+    tri.collect_partial(pt, r1, r2)
+    if e2e is None:
+        model, _ = _learn_model(idx, pt, a1, a2, r1, r2, draft.lengths,
+                                partial_flag=True, partial_len=partial_len)
+        return gaps, tri.bundles, model
+    maxd2 = int(insert * config.INSERT_FRAC)
+    er1, er2, ea1, ea2 = e2e
+    ept = build_pair_table(idx, ea1, ea2, er1.length, er2.length, maxd2)
+    model, _ = _learn_model(idx, ept, ea1, ea2, er1, er2, draft.lengths,
+                            partial_flag=False, partial_len=partial_len)
+    tri2 = Triage(gaps, max_distance=maxd2,
+                  read_mean=float(model.insert_mean), is_jump=True)
+    tri2.collect_unmapped(ept, er1, er2)
+    for bu, bp in zip(tri2.bundles, tri.bundles):
+        bp.u_seq, bp.u_pos, bp.u_rev = bu.u_seq, bu.u_pos, bu.u_rev
+    return gaps, tri.bundles, model
+
+
+def fill_on(device, draft, gaps, bundles, model, what, **kw):
+    """``fill_gaps`` on ``device`` with the launch counts set to 0 just
+    before and read just after.  Returns the result, the spliced draft, the
+    launches, the launches by shape and the run's record for
+    ``assert_runs_equal``."""
+    from figbird_tpu_torch.fill import fill_gaps
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    res = fill_gaps(draft, gaps, bundles, model, device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    by_shape = dict(sorted(ops.LAUNCHES_BY_SHAPE.items()))
+    out = draft.splice_gaps(gaps, res.gap_strings, list(res.gaptofill))
+    log(f"{what} on {device}: fill {wall:.2f}s, N {draft.count_n()} -> "
+        f"{out.count_n()}, stats {res.stats}, launches {launches}")
+    record = dict(n_after=out.count_n(), strings=res.gap_strings,
+                  gaptofill=np.asarray(res.gaptofill), contigs=out.contigs)
+    return res, out, launches, by_shape, record
+
+
+def check_filled(sim, gaps, res, out, what, min_acc=0.95):
+    from figbird_tpu_torch import evalx
+
+    acc = evalx.fill_accuracy_vs_truth(sim.truth, gaps, res.gap_strings)
+    log(f"{what}: N {sim.draft.count_n()} -> {out.count_n()}, filled-base "
+        f"accuracy {acc.identity:.4f} ({acc.filled_bases}/"
+        f"{acc.total_gap_bases} bases filled, {acc.closed}/{acc.n_gaps} "
+        f"gaps closed)")
+    if min_acc is not None:
+        assert out.count_n() < sim.draft.count_n(), f"{what}: N not reduced"
+        assert acc.identity >= min_acc, f"{what}: accuracy {acc.identity:.4f}"
+
+
+FILL_K = ("cascade", "band_soft", "band_hard", "fold")
+
+
+def phase_sam(bench):
+    """The SAM-injected fills (module docstring, phase 9)."""
+    from figbird_tpu_torch.align import AlignParams, build_index
+    from figbird_tpu_torch.align.core import e2e_params
+
+    tmp = Path(tempfile.mkdtemp(prefix="figbird_sam_"))
+    try:
+        # (a) tests/test_golden.py's flow, the fill on the card and the CPU
+        t0 = time.time()
+        sim = simulate.simulate(simulate.SimConfig(**GOLDEN_SIM))
+        idx = build_index(sim.draft, k=15)
+        ops.reset_launches()
+        _, back, _, _ = sam_round_trip(sim, idx, AlignParams(), 300,
+                                       tmp / "injected.sam", "9a")
+        assert ops.LAUNCHES["align_score"] > 0, "the aligner ran no K5"
+        gaps, bundles, model = sam_bundles(idx, sim.draft, back, 300)
+        kw = dict(partial_mode=True, partial_len=101, reference_exact=True)
+        fills = {dev: fill_on(dev, sim.draft, gaps, bundles, model,
+                              "sam 9a p fill", **kw) for dev in (DEV, "cpu")}
+        assert_runs_equal(fills[DEV][4], fills["cpu"][4], "sam 9a")
+        missing = [k for k in FILL_K if fills[DEV][2][k] == 0]
+        assert not missing, f"sam 9a: not launched on the card: {missing}"
+        check_filled(sim, gaps, *fills[DEV][:2], "sam 9a card", None)
+        log(f"sam 9a: card and CPU fills equal ({len(gaps)} gap strings, "
+            f"gaptofill, contigs); {time.time() - t0:.1f}s")
+
+        # (b) tests/test_golden_unmapped.py's flow on the card
+        t0 = time.time()
+        sim = simulate.simulate(simulate.SimConfig(**GOLDEN_U_SIM))
+        idx = build_index(sim.draft, k=15)
+        _, back, _, _ = sam_round_trip(sim, idx, AlignParams(), 600,
+                                       tmp / "result1.sam", "9b local")
+        _, e2e, _, _ = sam_round_trip(sim, idx, e2e_params(AlignParams()),
+                                      int(600 * config.INSERT_FRAC),
+                                      tmp / "result2.sam", "9b end-to-end")
+        gaps, bundles, model = sam_bundles(idx, sim.draft, back, 600,
+                                           e2e=e2e)
+        res, out, launches, _, _ = fill_on(
+            DEV, sim.draft, gaps, bundles, model, "sam 9b u fill",
+            partial_mode=False, partial_len=101, reference_exact=True)
+        missing = [k for k in FILL_K if launches[k] == 0]
+        assert not missing, f"sam 9b: not launched on the card: {missing}"
+        check_filled(sim, gaps, res, out, "sam 9b card")
+        log(f"sam 9b: {sum(b.n_unmapped for b in bundles)} unmapped mates; "
+            f"{time.time() - t0:.1f}s")
+
+        # (c) bench.py's dataset through a SAM, against the in-memory path
+        t0 = time.time()
+        idx = build_index(bench.draft, k=15)
+        (a1, a2), back, t_w, t_r = sam_round_trip(
+            bench, idx, AlignParams(), 200, tmp / "bench.sam", "9c",
+            check=False)
+        (tmp / "bench.sam").unlink()
+        kw = dict(partial_mode=True, partial_len=101, reference_exact=True)
+        gaps, bundles, model = sam_bundles(idx, bench.draft, back, 200)
+        res, out, _, _, _ = fill_on(DEV, bench.draft, gaps, bundles, model,
+                                    "sam 9c p fill", **kw)
+        check_filled(bench, gaps, res, out, "sam 9c card")
+        mem = (bench.reads1, bench.reads2, a1, a2)
+        gaps_m, bundles_m, model_m = sam_bundles(idx, bench.draft, mem, 200)
+        res_m = fill_on(DEV, bench.draft, gaps_m, bundles_m, model_m,
+                        "sam 9c in-memory p fill", **kw)[0]
+        n_eq = sum(np.array_equal(a, b) for a, b in
+                   zip(res.gap_strings, res_m.gap_strings))
+        log(f"sam 9c: write_sam {t_w:.2f}s, read_sam_pairs {t_r:.2f}s; gap "
+            f"strings equal to the in-memory path's {n_eq}/{len(gaps)}; "
+            f"{time.time() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 10
+# one library with a gap-length tail: every gap drawn from simulate's
+# lognormal (median 150, capped at 1,500), so several pass GAPTHRESH; 80x,
+# so a large gap's one-anchored free mates pass 128
+LARGE_SIM = dict(genome_len=1_000_000, n_contigs=4, n_gaps=40,
+                 gap_len_range=(10, 120), gap_len_tail=1.0,
+                 gap_len_tail_max=1500, read_len=101, insert_mean=600,
+                 insert_sd=50, coverage=80.0, error_rate=0.005, seed=5)
+
+
+class _Captured:
+    """Stands in for ``module.name``: keeps the arguments and result of
+    every call and passes it on."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def split_accuracy(sim, history):
+    """Filled-base accuracy of the combined gaps (the iterations' strings
+    mapped back to the draft's gaps) past GAPTHRESH and of the rest:
+    (identity, filled bases, gap bases, gaps)."""
+    from figbird_tpu_torch import evalx
+    from figbird_tpu_torch.combine import combine_gap_history
+    from figbird_tpu_torch.fill.driver import GAPTHRESH
+
+    gaps = sim.draft.find_gaps()
+    strings = [cg.seq for cg in combine_gap_history(history)]
+    out = {}
+    for what, keep in (("large", lambda g: g.length > GAPTHRESH),
+                       ("rest", lambda g: g.length <= GAPTHRESH)):
+        sel = [i for i, g in enumerate(gaps) if keep(g)]
+        acc = evalx.fill_accuracy_vs_truth(
+            sim.truth, [gaps[i] for i in sel], [strings[i] for i in sel])
+        out[what] = (round(acc.identity, 4), acc.filled_bases,
+                     acc.total_gap_bases, len(sel))
+    return out
+
+
+def phase_large_gap():
+    """The large-gap EM and the 1,024-read bucket in a pipeline run
+    (module docstring, phase 10).  Returns the u-iteration's launches by
+    (kernel, reads, positions)."""
+    from figbird_tpu_torch import pipeline
+    from figbird_tpu_torch.fill import driver
+
+    t_all = time.time()
+    sim = simulate.simulate(simulate.SimConfig(**LARGE_SIM))
+    gaps0 = sim.draft.find_gaps()
+    log(f"large-gap dataset: {sim.truth.total_length()} bp, "
+        f"{2 * len(sim.reads1)} reads, {len(gaps0)} gaps, "
+        f"{sum(g.length > driver.GAPTHRESH for g in gaps0)} past "
+        f"GAPTHRESH (lengths {sorted(g.length for g in gaps0)[-8:]} ...)")
+    pipe = Pipeline(_cfg(600, 101), sim.draft, [(sim.reads1, sim.reads2)],
+                    device=DEV)
+    out = {}
+    for mode in ("p", "u"):
+        with _Captured(pipeline, "fill_gaps") as fills, \
+                _Captured(driver, "plan_gaps") as plans:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.time()
+            st = pipe.run_iteration(mode, 0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = dict(ops.LAUNCHES)
+        by_shape = dict(sorted(ops.LAUNCHES_BY_SHAPE.items()))
+        log(f"large-gap {mode}-iteration: wall {wall:.2f}s, N {st.n_before}"
+            f" -> {st.n_after}, accuracy of the combined gaps by size "
+            f"{split_accuracy(sim, pipe.result.gap_history)}, launches "
+            f"{launches}; "
+            f"by (kernel, reads, positions) {by_shape}")
+        pipe.timer.report(sys.stdout)
+        log(f"large-gap {mode} fill stats: {pipe.last_fill_stats}")
+        out[mode] = (st, launches, by_shape, fills.calls[0], plans.calls[0])
+    st, launches, by_shape, (f_args, f_kw, _), (_, _, u_plans) = out["u"]
+    n_large = sum(p.large_gap for p in u_plans)
+    at_1024 = {k: n for k, n in by_shape.items() if k[1] == 1024}
+    at_3072 = {k: n for k, n in by_shape.items() if k[1] == 3072}
+    log(f"large-gap u: {n_large} plans with the large-gap flag; launches at "
+        f"1,024 reads {at_1024}; at 3,072 reads {at_3072 or 'none'}")
+    missing = [k for k, n in launches.items() if n == 0]
+    assert not missing, f"large-gap u: kernels not launched: {missing}"
+    assert st.n_after < st.n_before, "large-gap u: N not reduced"
+    assert n_large >= 4, f"large-gap u: {n_large} large-gap plans"
+    assert any(k[0] == "cascade" for k in at_1024), \
+        "large-gap u: no K1 launch at 1,024 reads"
+
+    # the staged scan against the reference's 200-iteration EM, on the
+    # u-iteration's own fill inputs (not asserted)
+    genome, gaps, bundles, model = f_args
+    kw = {k: v for k, v in f_kw.items() if k != "device"}
+    t0 = time.time()
+    res_x = fill_on(DEV, genome, gaps, bundles, model,
+                    "large-gap u reference_exact",
+                    **dict(kw, reference_exact=True))[0]
+    n_eq = sum(np.array_equal(a, b) for a, b in
+               zip(pipe.result.gap_history[-1][1], res_x.gap_strings))
+    log(f"large-gap u: gap strings equal to reference_exact's on the same "
+        f"inputs {n_eq}/{len(gaps)} ({time.time() - t0:.1f}s)")
+
+    # (b) one large gap at 1,024 reads: the card against the CPU
+    big = [i for i, p in enumerate(u_plans)
+           if p.large_gap and p.bundle.n_unmapped > 128]
+    assert big, "large-gap u: no large gap with more than 128 unmapped reads"
+    gi = max(big, key=lambda i: u_plans[i].bundle.n_unmapped)
+    one = ([gaps[gi]], [bundles[gi]])
+    kw = dict(kw, max_scan_lengths=4)
+    got, stats = {}, {}  # the stats without their timers ("t_*")
+    for dev in (DEV, "cpu"):
+        t0 = time.time()
+        res, _, _, b_shape, got[dev] = fill_on(dev, genome, *one, model,
+                                               f"large gap {gi}", **kw)
+        stats[dev] = {k: v for k, v in res.stats.items()
+                      if not k.startswith("t_")}
+        log(f"large gap {gi} ({gaps[gi].length} bp, "
+            f"{bundles[gi].n_unmapped} unmapped reads) on {dev}: "
+            f"{time.time() - t0:.1f}s; launches by shape {b_shape}")
+    assert_runs_equal(got[DEV], got["cpu"], f"large gap {gi}")
+    assert stats[DEV] == stats["cpu"], f"large gap {gi}: fill stats differ"
+    log(f"large gap {gi}: card and CPU equal (gap string, gaptofill, fill "
+        f"stats); phase {time.time() - t_all:.1f}s")
+    return by_shape
+
+
 def main():
     t_all = time.time()
     card = phase_device()
@@ -1381,6 +1743,12 @@ def main():
     t0 = time.time()
     two = phase_two_processes(sim)
     log(f"two-process phase {time.time() - t0:.1f}s")
+    t0 = time.time()
+    phase_sam(sim)
+    log(f"sam phase {time.time() - t0:.1f}s")
+    t0 = time.time()
+    large = phase_large_gap()
+    log(f"large-gap phase {time.time() - t0:.1f}s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["schedule_launches"] = sched[r["name"]]
@@ -1388,6 +1756,13 @@ def main():
         r["two_process_launches"] = two[r["name"]]
         if r["name"] == "align_score":
             r["mesh_aligner_launches"] = k5_mesh_aligners
+    for r in u_rows:
+        name, (reads, wp) = r["name"], r["key"]
+        r["large_gap_launches"] = large.get((name, reads, wp), 0)
+        if reads > 128:
+            r["large_gap_launches_by_positions"] = {
+                str(k[2]): n for k, n in large.items()
+                if k[:2] == (name, reads)}
     rows += u_rows_with_launches(u_rows, u_by_shape, mesh["u"])
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -12,10 +12,12 @@ output tree of a ``workdir``, ``pipeline.run_from_config`` and the CLI,
 ``python -m figbird_tpu_torch Config.json``.  It imports ``torch`` and never
 ``jax`` nor anything of ``figbird_tpu``: the numpy host modules it needs
 (``dtypes``, ``genome``, ``config``, ``simulate``, ``combine``, ``evalx``,
-``io``, ``model.error_model``, ``align.index``, ``align.pairing``,
-``triage.assign``, ``fill.draw``, ``utils``) are its own copies under the
-same relative names, and :mod:`.convert` carries the reference's objects
-across for the tests.
+``golden``, ``io`` with the SAM reader and writer, ``model.error_model``,
+``align.index``, ``align.pairing``, ``triage.assign``, ``fill.draw``,
+``utils``) are its own copies under the same relative names, and
+:mod:`.convert` carries the reference's objects across for the tests.  The
+package and its subpackages export the reference's public names, but for
+its JAX-only ones.
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and its
 CUDA kernel for CUDA tensors.  The entry points (``Pipeline``, ``Aligner``,
@@ -26,5 +28,16 @@ over a ``(reads, genome)`` mesh of devices, with code-range or
 contig-range genome shards, and over several processes joined by gloo,
 with the single-device results.
 """
+
+from .config import FigbirdConfig, Parameters, ReadLibrary
+from .genome import GapInfo, Genome
+
+__all__ = [
+    "FigbirdConfig",
+    "Parameters",
+    "ReadLibrary",
+    "Genome",
+    "GapInfo",
+]
 
 __version__ = "0.3.0"

@@ -1182,20 +1182,34 @@ def finalize_partial_instance(cfg: FillConfig, inst, model, best_string,
     qual = _assemble_bands(fold_counts(wh1, pr, qvals, n),
                            fold_counts(wh2, pr, qvals, n), p0r, cfg)
     qual = torch.where(gap_zone[..., None], qual, 0.0)
+    gl = inst["gap_len"][:, None]
+    end = pos + inst["p_len"]
+    left = accept & (pos < 0)
     return dict(counts=counts, qual=qual, accept=accept, pos=pos,
-                used=accept.sum(dim=1))
+                leftcount=left.sum(dim=1),
+                rightcount=(accept & (pos >= 0)).sum(dim=1),
+                spanning=(left & (end >= gl) & (-pos >= 3)
+                          & (end - gl >= 3)).any(dim=1),
+                total=inst["p_valid"].sum(dim=1), used=accept.sum(dim=1))
+
+
+def finalize_batch(cfg: FillConfig, insts: dict, model: dict, best_strings,
+                   saved, saved_l=None, saved_r=None) -> dict:
+    """Finalize over the instance batch (leading axis of every ``insts``
+    array): ``saved`` (I, R) is the unmapped mode's saved-read flags,
+    ``saved_l``/``saved_r`` (I,) the partial mode's saved overlap pair."""
+    if cfg.partial_mode:
+        return finalize_partial_instance(cfg, insts, model, best_strings,
+                                         saved_l, saved_r)
+    return finalize_unmapped_instance(cfg, insts, model, best_strings, saved)
 
 
 def finalize_batch_gathered(cfg, gap_arrays, gap_idx, gap_len, model,
                             best_strings, saved, saved_l, saved_r) -> dict:
-    """Finalize over gathered instances: ``saved`` (I, R) is the unmapped
-    mode's saved-read flags, ``saved_l``/``saved_r`` the partial mode's
-    saved overlap pair."""
+    """:func:`finalize_batch` over gathered instances."""
     inst = _gather_inst(cfg, gap_arrays, gap_idx, gap_len)
-    if cfg.partial_mode:
-        return finalize_partial_instance(cfg, inst, model, best_strings,
-                                         saved_l, saved_r)
-    return finalize_unmapped_instance(cfg, inst, model, best_strings, saved)
+    return finalize_batch(cfg, inst, model, best_strings, saved, saved_l,
+                          saved_r)
 
 
 # ---------------------------------------------------------------------------

@@ -89,6 +89,30 @@ def test_finalize_matches_reference(both):
                                    rtol=2e-6, atol=0, err_msg=k)
 
 
+def test_finalize_batch_matches_reference(both):
+    """The public ``fill.finalize_batch`` (the reference's signature) in
+    partial mode against the reference's: every output."""
+    from figbird_tpu_torch.fill import finalize_batch
+
+    cfg, insts, marr, ref, _, tcfg, tinsts, tmarr = both
+    saved = np.zeros((len(ref["consensus"]), cfg.R), np.int8)
+    fin = r_em.finalize_batch(cfg, insts, marr, ref["consensus"], saved,
+                              ref["saved_l"], ref["saved_r"])
+    got = finalize_batch(tcfg, tinsts, tmarr,
+                         *map(torch.as_tensor, (ref["consensus"], saved,
+                                                ref["saved_l"],
+                                                ref["saved_r"])))
+    assert sorted(got) == sorted(fin)
+    for k in fin:
+        if k in ("counts", "qual"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(fin[k]),
+                                       rtol=2e-6, atol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(fin[k]),
+                                          err_msg=k)
+    assert np.asarray(fin["leftcount"]).any() and np.asarray(fin["used"]).any()
+
+
 @pytest.mark.parametrize("depth", list(DEPTHS))
 def test_accumulate_logw_full_width(setup, depth):
     """The full-width soft accumulate (the unmapped mode's form): level

@@ -233,7 +233,10 @@ def test_port_runs_without_jax():
         import numpy as np
         import torch
         import figbird_tpu_torch.pipeline
-        from figbird_tpu_torch import genome
+        from figbird_tpu_torch import golden, genome
+        from figbird_tpu_torch.io import read_sam_pairs, sam, write_sam
+        from figbird_tpu_torch.fill import fill_gaps, finalize_batch
+        assert golden.reference_available() in (True, False)
         from figbird_tpu_torch.fill import driver, em
         from figbird_tpu_torch.model import error_model
         from figbird_tpu_torch.triage import assign
@@ -296,9 +299,9 @@ def test_port_sources_import_nothing_of_the_reference():
     files = sorted(Path(REPO, "figbird_tpu_torch").rglob("*.py")) \
         + [Path(REPO, "chip_smoke.py"), Path(REPO, "time_counts.py")]
     assert len(files) > 20
-    for mod in ("mesh", "sharded", "distributed"):
-        assert Path(REPO, "figbird_tpu_torch", "parallel", f"{mod}.py") \
-            in files, mod
+    for mod in ("parallel/mesh", "parallel/sharded", "parallel/distributed",
+                "io/sam", "golden"):
+        assert Path(REPO, "figbird_tpu_torch", f"{mod}.py") in files, mod
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert not bad, bad

@@ -458,3 +458,68 @@ def test_jump_library_iteration_equal():
         cfg, sim.draft, [(sim.reads1, sim.reads2), (simj.reads1, simj.reads2)],
         1, SMALL)
     _assert_iterations_equal(ref, st_ref, got, st_got)
+
+
+@pytest.mark.slow
+def test_large_gap_count_bucket_fill_equal():
+    """``fill_gaps(partial_mode=False)`` of both packages, with small caps,
+    on an unmapped set-up at 60x with gaps of 420-500 bp: past GAPTHRESH
+    (400), so ``_find_frac`` gives them the large-gap EM, and deep enough
+    that a gap holds more than 128 unmapped reads (the 1,024-read count
+    bucket).  The bundles and the model come from the port's aligner on
+    the CPU (local and end-to-end passes), each package's own pair table,
+    host model and triage; equal gap strings, gaptofill and fill stats."""
+    from figbird_tpu.align import build_pair_table as r_pair_table
+    from figbird_tpu.triage import Triage as r_Triage
+    from figbird_tpu_torch.align import build_pair_table as t_pair_table
+    from figbird_tpu_torch.align import build_index as t_build_index
+    from figbird_tpu_torch.triage import Triage as t_Triage
+
+    insert, maxd2 = 600, int(600 * 1.15)
+    sim = convert.sim_data(simulate(SimConfig(
+        genome_len=40_000, n_contigs=1, n_gaps=2, gap_len_range=(420, 500),
+        read_len=101, insert_mean=insert, insert_sd=50, coverage=60.0,
+        error_rate=0.003, seed=13)))
+    idx = t_build_index(sim.draft, k=15)
+    r1, r2 = sim.reads1, sim.reads2
+    passes = [t_core.Aligner(idx, p, batch_size=4096, device="cpu").align_many(
+        [(r1.seq, r1.length), (r2.seq, r2.length)])
+        for p in (t_core.AlignParams(), e2e_params(t_core.AlignParams()))]
+    gaps = sim.draft.find_gaps()
+    assert len(gaps) == 2 and min(g.length for g in gaps) > r_drv.GAPTHRESH
+    kw = dict(partial_mode=False, partial_len=101, max_scan_lengths=4,
+              instance_batch=16)
+    out = []
+    for pair_table, pipe, Triage, drv, extra in (
+            (r_pair_table, r_pipeline, r_Triage, r_drv, {}),
+            (t_pair_table, t_pipeline, t_Triage, t_drv, dict(device="cpu"))):
+        (a1, a2), (b1, b2) = passes
+        pt = pair_table(idx, a1, a2, r1.length, r2.length, insert)
+        ept = pair_table(idx, b1, b2, r1.length, r2.length, maxd2)
+        model, _ = pipe._learn_model(idx, ept, b1, b2, r1, r2,
+                                     sim.draft.lengths, partial_flag=False,
+                                     partial_len=101)
+        tri = Triage(gaps, max_distance=insert, read_mean=insert,
+                     is_jump=False)
+        tri.collect_partial(pt, r1, r2)
+        tri2 = Triage(gaps, max_distance=maxd2,
+                      read_mean=float(model.insert_mean), is_jump=False)
+        tri2.collect_unmapped(ept, r1, r2)
+        for bu, bp in zip(tri2.bundles, tri.bundles):
+            bp.u_seq, bp.u_pos, bp.u_rev = bu.u_seq, bu.u_pos, bu.u_rev
+        plans = drv.plan_gaps(sim.draft, gaps, tri.bundles, False, 101, 30)
+        res = drv.fill_gaps(sim.draft, gaps, tri.bundles, model, **kw,
+                            **extra)
+        out.append((plans, tri.bundles, res))
+    (plans, bundles, want), (_, _, got) = out
+    assert all(p.large_gap for p in plans)
+    assert max(b.n_unmapped for b in bundles) > 128
+    assert len(got.gap_strings) == len(want.gap_strings) == 2
+    for a, b in zip(got.gap_strings, want.gap_strings):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got.gaptofill, want.gaptofill)
+    def counters(stats):  # the timers ("t_*") aside
+        return {k: v for k, v in stats.items() if not k.startswith("t_")}
+
+    assert counters(got.stats) == counters(want.stats)
+    assert any((s != 4).any() for s in want.gap_strings)
