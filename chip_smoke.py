@@ -29,8 +29,8 @@ Phases (every one must pass; none is caught):
    The unmapped mode's shapes (every read at every position of the
    window): the u main path's own bucket, 128 reads x gap bucket 512, at
    both its width classes (Wp 613 and 229), and the full-width buckets of
-   1,024 reads x 512 and 3,072 reads x 128; K1 (m = 6) and K4 at each, K2
-   and both K3 forms (reverse strand's factors) at all but the last, each
+   1,024 reads x 512 and 3,072 reads x 128; K1 (m = 6), K4, K2 and both
+   K3 forms (reverse strand's factors) at each, each
    at the instance batch that fill_gaps' memory cap gives that bucket:
    checked and timed the same way.  On the kernels line each is a row of
    its own (``shape``) carrying the u-iteration's launches at its (reads,
@@ -38,11 +38,14 @@ Phases (every one must pass; none is caught):
    ``not_on_main_path`` of its kernel's row.
 3. parity  — the port's p-iteration on CUDA vs the same on the CPU (plain
    versions) on the 120 kb simulation of tests/test_pipeline.py, at the
-   production default and at exact_soft=False: aligner outputs must be
-   equal; equal gap strings are reported for each configuration.  Then a
+   production default, at exact_soft=False and at the "auto" and "hybrid"
+   tiers: aligner outputs must be equal; equal gap strings are reported for
+   each configuration ("auto": its escalated lanes too).  Then a
    u-iteration (``run_iteration("u", 0)``) on the same simulation, card
    and CPU, at the default: the end-to-end pass's aligner outputs and the
-   gap strings must be equal.
+   gap strings must be equal.  The CPU side runs in a process of its own
+   (``CpuJob``) from the script's start, beside the card phases, and is
+   compared when the card phases are done.
 4. main path — bench.py's E. coli-scale dataset (4.6 Mb, 50 gaps, 2x101 bp,
    insert 200, 10x) through Pipeline.run_iteration("p", 0) on the card, at
    the production default (default fill_kwargs: all five kernels launched)
@@ -132,6 +135,34 @@ Phases (every one must pass; none is caught):
    reads those at its read count by positions
    (``large_gap_launches_by_positions``).
 
+11. chr14 — scripts/chr14_scale_torch.py's flow on the card at
+   ``CHR14_MB`` (88 Mb: the reference's chr14-scale configuration, 8.7 M
+   reads, 5,000 gaps): simulate, a cold and a warm p-iteration (equal N and
+   gap strings), a u-iteration, three sample gaps on the card and the CPU
+   (equal); N before as simulated (466,755), N reduced in each iteration,
+   accuracy >= 0.95 against the truth, all five kernels launched.
+12. the paths no earlier phase reaches, each printed with its wall.  (a)
+   exact_soft="auto" and "hybrid" on bench.py's dataset: N reduced,
+   accuracy >= 0.95, all five kernels launched, the gap strings equal to
+   the default's counted ("auto": its escalated lanes).  (b) Phase 6's
+   dataset under ``default: 0`` (serial numbers reversed, num_itr_* set):
+   the ``# itr`` lines equal USER_SCHEDULE, the tree complete, N reduced.
+   (c) ``--resume --max-iterations 1`` on phase 6's output: the resume line
+   names its last filled assembly, the resumed iteration starts from its
+   final N, the tree is written.  (d) The 3,072-read bucket: a 100 kb
+   genome with 3 gaps of 500-1,500 bp at 1,000x, p- then u-iteration: K1-K4
+   launched at 3,072 reads, N reduced, accuracy >= 0.95; one gap at 3,072
+   reads through ``fill_gaps`` on the card and (a CpuJob) the CPU, the scan
+   capped at BUCKET_SCAN lengths on both: equal.  (e) The contig-range
+   path past the replicated budget: a (reads 1, genome 2) mesh of the card
+   repeated, ``HOST_FLAT_BUDGET`` below the genome's length: no device
+   statistics, the model learned on the host, all five kernels launched,
+   the p-iteration equal to phase 4's.  (d) runs before phase 11, so that
+   its CPU side overlaps phase 11.
+   On the kernels line every row carries the chr14 and 3,072-bucket runs'
+   launches (``chr14_launches``, ``bucket_3072_launches``: by iteration;
+   a p row the kernel's, an unmapped row those at its shape).
+
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
 """
@@ -139,6 +170,7 @@ name/power-limit line; the last line is the device JSON.
 import contextlib
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -160,6 +192,10 @@ from figbird_tpu_torch.ops import _build  # noqa: E402
 from figbird_tpu_torch.ops import band, align_score  # noqa: E402
 from figbird_tpu_torch.pipeline import Pipeline  # noqa: E402
 from time_align import align_bound, align_inputs  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+import chr14_scale_torch as chr14  # noqa: E402
+from chr14_scale_torch import Captured  # noqa: E402
 from time_bands import band_inputs  # noqa: E402
 from time_counts import cuda_ms  # noqa: E402
 
@@ -184,11 +220,11 @@ PARTIAL_BATCHES = (128, 256)
 ALIGN_GENOME = 4_600_000
 ALIGN_SHAPES = ((32768, 8, "main"), (32768, 32, "scattered"))
 FULL_WIDTH = (512, 512)
-# the unmapped mode's shapes for K1-K4: (reads, gap bucket, width class,
-# K2 and K3 too): the u main path's 128-read bucket at gap 512 at both its
-# width classes, then the full-width buckets of 1,024 and 3,072 reads
-U_SHAPES = ((128, 512, 512, True), (128, 512, 128, True),
-            (1024, 512, 512, True), (3072, 128, 128, False))
+# the unmapped mode's shapes for K1-K4: (reads, gap bucket, width class):
+# the u main path's 128-read bucket at gap 512 at both its width classes,
+# then the full-width buckets of 1,024 and 3,072 reads
+U_SHAPES = ((128, 512, 512), (128, 512, 128), (1024, 512, 512),
+            (3072, 128, 128))
 
 
 def log(msg):
@@ -626,13 +662,13 @@ def phase_kernels_unmapped():
     the window, each at the instance batch that fill_gaps' memory cap gives
     its bucket.  K1 (m = 6) and K4 at every U_SHAPES entry, K4 with the
     hard counts' weights (one 1 per accepted read); K2 and both K3 forms,
-    with the reverse strand's factors, at the entries marked for them.
+    with the reverse strand's factors, at every entry too.
     Checked as in phase 2 and timed beside the plain versions, library
     chains and bounds."""
     g = torch.Generator(device=DEV).manual_seed(1)
     L = 101
     rows = []
-    for n, gb, width, bands in U_SHAPES:
+    for n, gb, width in U_SHAPES:
         ib = u_batch(n, gb)
         Wp = L + width
         W = Wp + L
@@ -682,8 +718,6 @@ def phase_kernels_unmapped():
                           nbytes(weights, codes, vals) + ib * W * 5 * 4, ops))
         del weights, codes, vals, ohT
         torch.cuda.empty_cache()
-        if not bands:
-            continue
         # K2 and K3 with the reverse strand's factors
         bshape = shape + ", reverse strand"
         codes, valid, probs, eprobs, e_pos, gap, a, b, ln_et = band_inputs(
@@ -738,74 +772,123 @@ def _cfg(insert, read_len):
         parameters=config.Parameters(trim_len=0, evaluation=0))
 
 
-FILLS = (("default", {}), ("exact_soft=False", {"exact_soft": False}))
+# tests/test_pipeline.py's 120 kb simulation; the precision tiers of the
+# p-iteration (the production default first)
+PARITY_SIM = dict(genome_len=120_000, n_contigs=1, n_gaps=8,
+                  gap_len_range=(8, 60), insert_mean=250, insert_sd=20,
+                  coverage=25, error_rate=0.004, seed=42)
+FILLS = (("default", {}), ("exact_soft=False", {"exact_soft": False}),
+         ("exact_soft='auto'", {"exact_soft": "auto"}),
+         ("exact_soft='hybrid'", {"exact_soft": "hybrid"}))
+U_PARITY = "u default"
 
 
-def phase_parity():
-    sim = simulate.simulate(simulate.SimConfig(
-        genome_len=120_000, n_contigs=1, n_gaps=8, gap_len_range=(8, 60),
-        insert_mean=250, insert_sd=20, coverage=25, error_rate=0.004,
-        seed=42))
+def parity_side(dev) -> dict:
+    """Phase 3's iterations on ``dev``: the p-iteration at every tier of
+    FILLS, then a fresh Pipeline's u-iteration at the default.  For each:
+    the aligner outputs (the u-iteration's end-to-end pass), gap strings,
+    N, wall and the fill's escalation counts."""
+    sim = simulate.simulate(simulate.SimConfig(**PARITY_SIM))
     cfg = _cfg(250, 100)
-    for what, fill_kwargs in FILLS:
-        pipes = {}
-        for dev in ("cuda", "cpu"):
-            p = Pipeline(cfg, sim.draft, [(sim.reads1, sim.reads2)],
-                         fill_kwargs=fill_kwargs, device=dev)
-            t0 = time.time()
-            st = p.run_iteration("p", 0)
-            log(f"parity {what} {dev}: {time.time() - t0:.1f}s N "
-                f"{st.n_before} -> {st.n_after}")
-            pipes[dev] = p
-        for a_gpu, a_cpu in zip(pipes["cuda"].last_alignments,
-                                pipes["cpu"].last_alignments):
-            for k in ALIGN_KEYS:
-                np.testing.assert_array_equal(a_gpu[k], a_cpu[k], err_msg=k)
-        s_gpu = pipes["cuda"].result.gap_history[0][1]
-        s_cpu = pipes["cpu"].result.gap_history[0][1]
-        n_eq = sum(np.array_equal(x, y) for x, y in zip(s_gpu, s_cpu))
-        log(f"parity {what}: aligner outputs equal; gap strings equal "
-            f"{n_eq}/{len(s_gpu)}")
-    parity_unmapped(sim, cfg)
-
-
-def parity_unmapped(sim, cfg):
-    """The u-iteration on the card and on the CPU at the default: the
-    end-to-end pass's aligner outputs and the gap strings must be equal."""
-    pipes = {}
-    for dev in ("cuda", "cpu"):
-        p = Pipeline(cfg, sim.draft, [(sim.reads1, sim.reads2)], device=dev)
+    out = {}
+    for what, fill_kwargs, mode in ([(w, kw, "p") for w, kw in FILLS]
+                                    + [(U_PARITY, {}, "u")]):
+        p = Pipeline(cfg, sim.draft, [(sim.reads1, sim.reads2)],
+                     fill_kwargs=fill_kwargs, device=dev)
         t0 = time.time()
-        st = p.run_iteration("u", 0)
-        log(f"parity u default {dev}: {time.time() - t0:.1f}s N "
-            f"{st.n_before} -> {st.n_after}")
-        pipes[dev] = p
-    for a_gpu, a_cpu in zip(pipes["cuda"].last_alignments_e2e,
-                            pipes["cpu"].last_alignments_e2e):
-        for k in ALIGN_KEYS:
-            np.testing.assert_array_equal(a_gpu[k], a_cpu[k], err_msg=k)
-    s_gpu = pipes["cuda"].result.gap_history[0][1]
-    s_cpu = pipes["cpu"].result.gap_history[0][1]
-    n_eq = sum(np.array_equal(x, y) for x, y in zip(s_gpu, s_cpu))
-    log(f"parity u default: end-to-end aligner outputs equal; gap strings "
-        f"equal {n_eq}/{len(s_gpu)}")
-    assert n_eq == len(s_gpu) == len(s_cpu), "u gap strings differ"
+        st = p.run_iteration(mode, 0)
+        wall = time.time() - t0
+        aligns = p.last_alignments if mode == "p" else p.last_alignments_e2e
+        out[what] = dict(
+            wall=wall, n=(st.n_before, st.n_after),
+            align=[{k: a[k] for k in ALIGN_KEYS} for a in aligns],
+            strings=p.result.gap_history[0][1],
+            esc={k: v for k, v in p.last_fill_stats.items()
+                 if k.startswith("esc_")})
+        log(f"parity {what} {dev}: {wall:.1f}s N {st.n_before} -> "
+            f"{st.n_after}")
+    return out
+
+
+def parity_compare(card: dict, cpu: dict) -> None:
+    """Phase 3's checks: the aligner outputs of every iteration equal on the
+    card and the CPU, the number of equal gap strings printed for each p
+    tier, and the u-iteration's gap strings all equal."""
+    for what in [w for w, _ in FILLS] + [U_PARITY]:
+        g, c = card[what], cpu[what]
+        for a_gpu, a_cpu in zip(g["align"], c["align"]):
+            for k in ALIGN_KEYS:
+                np.testing.assert_array_equal(a_gpu[k], a_cpu[k],
+                                              err_msg=f"{what}: {k}")
+        n_eq = sum(np.array_equal(x, y)
+                   for x, y in zip(g["strings"], c["strings"]))
+        esc = f"; lanes escalated card {g['esc']}, CPU {c['esc']}" \
+            if g["esc"] or c["esc"] else ""
+        log(f"parity {what}: aligner outputs equal; gap strings equal "
+            f"{n_eq}/{len(g['strings'])}; card {g['wall']:.1f}s, CPU "
+            f"{c['wall']:.1f}s{esc}")
+        if what == U_PARITY:
+            assert n_eq == len(g["strings"]) == len(c["strings"]), \
+                "u gap strings differ"
+
+
+class CpuJob:
+    """``chip_smoke.py --cpu-job IN OUT`` in a process of its own: the
+    function of this module named in ``IN`` runs on the CPU beside the card
+    phases; ``result`` waits for it (at most ``timeout`` seconds from its
+    start) and returns what it returned.  A job that fails or outlives its
+    timeout fails the script; ``stop`` kills it if it still runs."""
+
+    def __init__(self, name: str, *args, threads: int | None = None,
+                 timeout: float = 1000.0):
+        self.name, self.timeout, self.t0 = name, timeout, time.time()
+        self.dir = Path(tempfile.mkdtemp(prefix="figbird_cpu_job_"))
+        with open(self.dir / "in.pkl", "wb") as fh:
+            pickle.dump((name, args), fh)
+        threads = threads or max(1, (os.cpu_count() or 2) // 2)
+        self.log = open(self.dir / "log", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-job",
+             str(self.dir / "in.pkl"), str(self.dir / "out.pkl"),
+             str(threads)], stdout=self.log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
+
+    def result(self):
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, self.timeout - (time.time() - self.t0)))
+            self.log.seek(0)
+            text = self.log.read()
+            log(f"CPU job {self.name}: exit {rc} after "
+                f"{time.time() - self.t0:.1f}s; its log:")
+            sys.stdout.write(text)
+            assert rc == 0, f"CPU job {self.name} failed"
+            with open(self.dir / "out.pkl", "rb") as fh:
+                return pickle.load(fh)
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_job_main(argv) -> None:
+    """The process of a ``CpuJob``: ``argv`` is IN, OUT and the thread
+    count."""
+    src, dst, threads = argv
+    torch.set_num_threads(int(threads))
+    with open(src, "rb") as fh:
+        name, args = pickle.load(fh)
+    out = globals()[name](*args)
+    with open(dst, "wb") as fh:
+        pickle.dump(out, fh)
 
 
 # ---------------------------------------------------------------- phase 4
-def filled_accuracy(sim, gap_history):
-    total = correct = filled = 0
-    for gaps_i, strings, _ in gap_history[:1]:
-        for gp, s in zip(gaps_i, strings):
-            tr = sim.truth.contigs[gp.contig][gp.start : gp.start + gp.length]
-            if len(s) == gp.length:
-                m = s != dtypes.N
-                total += gp.length
-                filled += int(m.sum())
-                correct += int((s[m] == tr[m]).sum())
-    return correct / max(filled, 1), filled, total
-
-
 # the single-device default iterations of phases 4 and 5, by mode: what
 # the mesh and the two processes of phases 7 and 8 must give
 SINGLE = {}
@@ -832,7 +915,8 @@ def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95,
              keep=False):
     """One iteration (``mode``) at full scale with the launch counts set to
     0 just before and read just after; the kernels in ``expect`` must have
-    been launched.  ``keep``: the run's outputs go to ``SINGLE[mode]``."""
+    been launched.  ``keep``: the run's outputs go to ``SINGLE[mode]``.
+    Returns the launches, the wall, the gap strings and the fill stats."""
     n_reads = 2 * len(sim.reads1)
     pipe = Pipeline(_cfg(200, 101), sim.draft, [(sim.reads1, sim.reads2)],
                     fill_kwargs=fill_kwargs, device=DEV)
@@ -844,10 +928,12 @@ def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95,
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
     by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
-    acc, filled, total = filled_accuracy(sim, pipe.result.gap_history)
+    gaps, strings, _ = pipe.result.gap_history[0]
+    fa = chr14.fill_accuracy(sim, gaps, strings)
+    acc = fa["identity"]
     log(f"main path {what}: wall {wall:.2f}s, {n_reads / wall:.0f} reads/s, "
         f"N {st.n_before} -> {st.n_after}, filled-base accuracy {acc:.4f} "
-        f"({filled}/{total} bases filled), launches {launches}, "
+        f"({fa['filled']}/{fa['total']} bases filled), launches {launches}, "
         f"align_score launches by candidates a read {by_c}")
     pipe.timer.report(sys.stdout)
     log(f"fill stats {what}: {pipe.last_fill_stats}")
@@ -858,7 +944,7 @@ def run_main(sim, what, fill_kwargs, expect, mode="p", min_acc=0.95,
         assert acc >= min_acc, f"filled-base accuracy {acc:.4f} < {min_acc}"
     if keep:
         SINGLE[mode] = run_record(pipe, st)
-    return launches, wall, pipe.result.gap_history[0][1]
+    return launches, wall, strings, pipe.last_fill_stats
 
 
 def busy_share(sim, wall_plain, mode="p"):
@@ -922,15 +1008,15 @@ def bench_sim(genome_len=4_600_000):
 def phase_main(sim, profile_run: bool):
     all5 = tuple(ops.LAUNCHES)
     four = tuple(k for k in all5 if k != "cascade")
-    launches, _, s_def = run_main(sim, "default", {}, all5, keep=True)
-    _, _, s_f32 = run_main(sim, "exact_soft=False", {"exact_soft": False},
+    launches, _, s_def, _ = run_main(sim, "default", {}, all5, keep=True)
+    _, _, s_f32, _ = run_main(sim, "exact_soft=False", {"exact_soft": False},
                            four)
     n_diff = sum(not np.array_equal(a, b) for a, b in zip(s_def, s_f32))
     log(f"main path: {n_diff}/{len(s_def)} gap strings differ between the "
         f"default and exact_soft=False")
     # once more each, warm: the cost of the exact cascade end to end
-    _, w_def, _ = run_main(sim, "default (warm)", {}, all5)
-    _, w_f32, _ = run_main(sim, "exact_soft=False (warm)",
+    _, w_def, _, _ = run_main(sim, "default (warm)", {}, all5)
+    _, w_f32, _, _ = run_main(sim, "exact_soft=False (warm)",
                            {"exact_soft": False}, four)
     log(f"main path warm walls: default {w_def:.3f}s, exact_soft=False "
         f"{w_f32:.3f}s, ratio {w_def / w_f32:.3f}")
@@ -944,12 +1030,13 @@ def phase_main_unmapped(sim, profile_run: bool):
     all five kernels launched, N reduced; then one reference_exact
     u-iteration and its gap strings against the default's."""
     all5 = tuple(ops.LAUNCHES)
-    _, wall, s_def = run_main(sim, "u default", {}, all5, "u", keep=True)
+    _, wall, s_def, _ = run_main(sim, "u default", {}, all5, "u",
+                                 keep=True)
     by_shape = dict(ops.LAUNCHES_BY_SHAPE)
     log("main path u default: launches by (kernel, reads, positions) "
         + str(dict(sorted(by_shape.items()))))
-    _, _, s_x = run_main(sim, "u reference_exact", {"reference_exact": True},
-                         all5, "u")
+    _, _, s_x, _ = run_main(sim, "u reference_exact",
+                            {"reference_exact": True}, all5, "u")
     n_eq = sum(np.array_equal(a, b) for a, b in zip(s_def, s_x))
     log(f"main path u: default vs reference_exact gap strings equal "
         f"{n_eq}/{len(s_def)}")
@@ -1053,91 +1140,92 @@ def expected_tree(n_itr: int) -> set:
     return files
 
 
-def phase_schedule(sim):
+def phase_schedule(sim, out: Path):
     """The whole run through the port's CLI on the card (module docstring,
-    phase 6).  Returns the run's launches by kernel."""
+    phase 6), its files in ``out``.  Returns the run's launches by kernel
+    and what phase 12c resumes from: the Config.json, the output tree, the
+    number of iterations and the final N."""
     from figbird_tpu_torch import __main__ as cli
     from figbird_tpu_torch import evalx, pipeline
     from figbird_tpu_torch.genome import Genome
     from figbird_tpu_torch.io import fastq, native
     from figbird_tpu_torch.io.fasta import read_fasta
 
-    with tempfile.TemporaryDirectory(prefix="figbird_schedule_") as tmp:
-        out = Path(tmp)
-        cfg = schedule_dataset(sim, out)
-        seen = []
+    cfg = schedule_dataset(sim, out)
+    seen = []
 
-        class Seen(pipeline.Pipeline):
-            def __init__(self, *args, **kwargs):
-                super().__init__(*args, **kwargs)
-                seen.append(self)
+    class Seen(pipeline.Pipeline):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen.append(self)
 
-        parse_s, eval_s = [], []
-        tee = _Tee(sys.stderr)
-        real = pipeline.Pipeline
-        pipeline.Pipeline = Seen
-        try:
-            with _timed_calls(fastq, "read_fastq", parse_s), \
-                    _timed_calls(evalx, "evaluate_against_reference",
-                                 eval_s), contextlib.redirect_stderr(tee):
-                torch.cuda.synchronize()
-                ops.reset_launches()
-                t0 = time.time()
-                rc = cli.main([str(cfg)])
-                torch.cuda.synchronize()
-                wall = time.time() - t0
-        finally:
-            pipeline.Pipeline = real
-        launches = dict(ops.LAUNCHES)
-        by_shape = dict(ops.LAUNCHES_BY_SHAPE)
-        by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
-        assert rc == 0, f"the CLI exited with {rc}"
-        ran = [(m[1], int(m[2])) for m in map(
-            ITR_LINE.match, "".join(tee.parts).splitlines()) if m]
-        pipe, = seen
-        log(f"schedule: CLI wall {wall:.2f}s for {len(ran)} iterations "
-            f"{ran}, FASTQ parse {sum(parse_s):.2f}s over {len(parse_s)} "
-            f"files (native parser {native.get_lib() is not None}), "
-            f"evaluate_against_reference {sum(eval_s):.2f}s")
-        for st in pipe.result.iterations:
-            log(f"schedule itr {st.itr} [{st.mode} lib{st.lib}]: wall "
-                f"{st.seconds:.3f}s, N {st.n_before} -> {st.n_after}, "
-                f"{st.gaps} gaps, {st.filled} filled, {st.n_pairs} pairs")
-        pipe.timer.report(sys.stdout)
-        log(f"schedule launches {launches}; by (kernel, reads, positions) "
-            f"{dict(sorted(by_shape.items()))}; align_score by candidates a "
-            f"read {by_c}")
-        assert ran and ran == TWO_LIB_SCHEDULE[:len(ran)], ran
-        last = pipe.result.iterations[-1]
-        assert len(ran) == len(TWO_LIB_SCHEDULE) \
-            or last.n_after in (0, last.n_before), \
-            f"the schedule stopped after {len(ran)} iterations while N moved"
-        missing = [k for k, n in launches.items() if n == 0]
-        assert not missing, f"kernels not launched by the schedule: {missing}"
+    parse_s, eval_s = [], []
+    tee = _Tee(sys.stderr)
+    real = pipeline.Pipeline
+    pipeline.Pipeline = Seen
+    try:
+        with _timed_calls(fastq, "read_fastq", parse_s), \
+                _timed_calls(evalx, "evaluate_against_reference",
+                             eval_s), contextlib.redirect_stderr(tee):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.time()
+            rc = cli.main([str(cfg)])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        pipeline.Pipeline = real
+    launches = dict(ops.LAUNCHES)
+    by_shape = dict(ops.LAUNCHES_BY_SHAPE)
+    by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
+    assert rc == 0, f"the CLI exited with {rc}"
+    ran = [(m[1], int(m[2])) for m in map(
+        ITR_LINE.match, "".join(tee.parts).splitlines()) if m]
+    pipe, = seen
+    log(f"schedule: CLI wall {wall:.2f}s for {len(ran)} iterations "
+        f"{ran}, FASTQ parse {sum(parse_s):.2f}s over {len(parse_s)} "
+        f"files (native parser {native.get_lib() is not None}), "
+        f"evaluate_against_reference {sum(eval_s):.2f}s")
+    for st in pipe.result.iterations:
+        log(f"schedule itr {st.itr} [{st.mode} lib{st.lib}]: wall "
+            f"{st.seconds:.3f}s, N {st.n_before} -> {st.n_after}, "
+            f"{st.gaps} gaps, {st.filled} filled, {st.n_pairs} pairs")
+    pipe.timer.report(sys.stdout)
+    log(f"schedule launches {launches}; by (kernel, reads, positions) "
+        f"{dict(sorted(by_shape.items()))}; align_score by candidates a "
+        f"read {by_c}")
+    assert ran and ran == TWO_LIB_SCHEDULE[:len(ran)], ran
+    last = pipe.result.iterations[-1]
+    assert len(ran) == len(TWO_LIB_SCHEDULE) \
+        or last.n_after in (0, last.n_before), \
+        f"the schedule stopped after {len(ran)} iterations while N moved"
+    missing = [k for k, n in launches.items() if n == 0]
+    assert not missing, f"kernels not launched by the schedule: {missing}"
 
-        wd = out / "Figbird"
-        draft = Genome.from_fasta(read_fasta(out / "draft.fa"))
-        final = Genome.from_fasta(read_fasta(wd / "FilledScaffolds_final.fa"))
-        assert final.count_n() < draft.count_n(), "N not reduced"
-        rows = (wd / "Individual_gaps.txt").read_text().splitlines()[2:]
-        strings = [dtypes.encode(r.split("\t")[3]) for r in rows]
-        acc = evalx.fill_accuracy_vs_truth(sim.truth, draft.find_gaps(),
-                                           strings)
-        tree = {str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file()}
-        missing = expected_tree(len(ran)) - tree
-        result = (wd / "Result.txt").read_text().splitlines()
-        log(f"schedule: N {draft.count_n()} -> {final.count_n()}, filled-base "
-            f"accuracy of the combined gaps {acc.identity:.4f} "
-            f"({acc.filled_bases}/{acc.total_gap_bases} bases filled, "
-            f"{acc.closed}/{acc.n_gaps} gaps closed at their length), "
-            f"{len(tree)} files in the output tree; Result.txt "
-            f"{dict(zip(result[0].split(), result[1].split()))}")
-        assert acc.identity >= 0.95, f"filled-base accuracy {acc.identity}"
-        assert not missing, f"output tree lacks {sorted(missing)}"
-        assert (wd / "FilledScaffolds_final.fa").read_bytes() == (
-            wd / "Filled_Scaffolds" / f"{len(ran)}filledContigs.fa"
-        ).read_bytes(), "the final assembly differs from the last iteration's"
-    return launches
+    wd = out / "Figbird"
+    draft = Genome.from_fasta(read_fasta(out / "draft.fa"))
+    final = Genome.from_fasta(read_fasta(wd / "FilledScaffolds_final.fa"))
+    assert final.count_n() < draft.count_n(), "N not reduced"
+    rows = (wd / "Individual_gaps.txt").read_text().splitlines()[2:]
+    strings = [dtypes.encode(r.split("\t")[3]) for r in rows]
+    acc = evalx.fill_accuracy_vs_truth(sim.truth, draft.find_gaps(),
+                                       strings)
+    tree = {str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file()}
+    missing = expected_tree(len(ran)) - tree
+    result = (wd / "Result.txt").read_text().splitlines()
+    log(f"schedule: N {draft.count_n()} -> {final.count_n()}, filled-base "
+        f"accuracy of the combined gaps {acc.identity:.4f} "
+        f"({acc.filled_bases}/{acc.total_gap_bases} bases filled, "
+        f"{acc.closed}/{acc.n_gaps} gaps closed at their length), "
+        f"{len(tree)} files in the output tree; Result.txt "
+        f"{dict(zip(result[0].split(), result[1].split()))}")
+    assert acc.identity >= 0.95, f"filled-base accuracy {acc.identity}"
+    assert not missing, f"output tree lacks {sorted(missing)}"
+    assert (wd / "FilledScaffolds_final.fa").read_bytes() == (
+        wd / "Filled_Scaffolds" / f"{len(ran)}filledContigs.fa"
+    ).read_bytes(), "the final assembly differs from the last iteration's"
+    return launches, dict(cfg=cfg, wd=wd, n_itr=len(ran),
+                          n_final=final.count_n())
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1596,28 +1684,6 @@ LARGE_SIM = dict(genome_len=1_000_000, n_contigs=4, n_gaps=40,
                  insert_sd=50, coverage=80.0, error_rate=0.005, seed=5)
 
 
-class _Captured:
-    """Stands in for ``module.name``: keeps the arguments and result of
-    every call and passes it on."""
-
-    def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.fn = getattr(module, name)
-        self.calls = []
-
-    def __call__(self, *args, **kwargs):
-        out = self.fn(*args, **kwargs)
-        self.calls.append((args, kwargs, out))
-        return out
-
-    def __enter__(self):
-        setattr(self.module, self.name, self)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
-
-
 def split_accuracy(sim, history):
     """Filled-base accuracy of the combined gaps (the iterations' strings
     mapped back to the draft's gaps) past GAPTHRESH and of the rest:
@@ -1657,8 +1723,8 @@ def phase_large_gap():
                     device=DEV)
     out = {}
     for mode in ("p", "u"):
-        with _Captured(pipeline, "fill_gaps") as fills, \
-                _Captured(driver, "plan_gaps") as plans:
+        with Captured(pipeline, "fill_gaps") as fills, \
+                Captured(driver, "plan_gaps") as plans:
             torch.cuda.synchronize()
             ops.reset_launches()
             t0 = time.time()
@@ -1725,44 +1791,384 @@ def phase_large_gap():
     return by_shape
 
 
-def main():
+# ---------------------------------------------------------------- phase 11
+# the chr14 phase's genome (Mb): scripts/chr14_scale_torch.py at full size
+CHR14_MB = 88.0
+
+
+def phase_chr14() -> dict:
+    """scripts/chr14_scale_torch.py's flow on the card at ``CHR14_MB``
+    (module docstring, phase 11); its record."""
+    t0 = time.time()
+    out = chr14.run(CHR14_MB, device=DEV)
+    keep = ("genome_len", "n_reads", "n_gaps", "gaps_past_gapthresh",
+            "wall_p_cold_s", "wall_p_warm_s", "wall_u_s", "accuracy_p",
+            "accuracy_p_u", "samples", "n_after_minus_reference",
+            "peak_device_bytes", "peak_host_rss_bytes")
+    log(f"chr14 {CHR14_MB} Mb: {json.dumps({k: out[k] for k in keep})}")
+    for mode in ("p", "u"):
+        r = out[mode]
+        stats = {k: v for k, v in r["fill_stats"].items()
+                 if k != "bucket_shapes"}
+        log(f"chr14 {mode}-iteration: N {r['n_before']} -> {r['n_after']}, "
+            f"stages {r['stages']}, fill stats {stats}, launches "
+            f"{r['launches']}, by shape {r['launches_by_shape']}")
+    log(f"chr14 phase {time.time() - t0:.1f}s")
+    return out
+
+
+def by_shape_of(record: dict) -> dict:
+    """A chr14 iteration's ``launches_by_shape`` keyed as
+    ``ops.LAUNCHES_BY_SHAPE`` is: (kernel, reads, positions)."""
+    out = {}
+    for key, n in record["launches_by_shape"].items():
+        name, reads, wp = key.split("/")
+        out[name, int(reads), int(wp)] = n
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+def phase_tiers(sim) -> None:
+    """(a) ``exact_soft="auto"`` and ``"hybrid"`` on bench.py's dataset on
+    the card: all five kernels launched, N reduced, accuracy >= 0.95, and
+    the number of gap strings equal to the default's (phase 4) printed;
+    ``"auto"``'s escalated lanes printed."""
+    all5 = tuple(ops.LAUNCHES)
+    for tier in ("auto", "hybrid"):
+        _, wall, strings, stats = run_main(sim, f"exact_soft={tier!r}",
+                                           {"exact_soft": tier}, all5)
+        n_eq = sum(np.array_equal(a, b)
+                   for a, b in zip(strings, SINGLE["p"]["strings"]))
+        esc = {k: v for k, v in stats.items() if k.startswith("esc_")}
+        log(f"phase 12a exact_soft={tier!r}: wall {wall:.2f}s, gap strings "
+            f"equal to the default's {n_eq}/{len(strings)}"
+            + (f", lanes escalated to the exact cascade {esc}"
+               if tier == "auto" else ""))
+
+
+ITR_N = re.compile(r"^# itr (\d+) \[([pu]) lib(\d+)\]: \d+ gaps, \d+ "
+                   r"filled, N (\d+)->(\d+) \([\d.]+s\)$", re.M)
+
+
+def cli_run(args) -> tuple:
+    """``figbird_tpu_torch.__main__.main(args)`` on the card in this process,
+    the launch counts set to 0 just before and read just after.  Returns
+    the exit code, what it wrote to stderr, the wall and the launches."""
+    from figbird_tpu_torch import __main__ as cli
+
+    tee = _Tee(sys.stderr)
+    with contextlib.redirect_stderr(tee):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.time()
+        rc = cli.main([str(a) for a in args])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return rc, "".join(tee.parts), wall, dict(ops.LAUNCHES)
+
+
+# phase 6's libraries (0: frag, 1: jump) under ``default: 0``, their serial
+# numbers reversed, and the schedule Pipeline.run gives them, written out:
+# serial 1 (the jump library: u once, no p), then serial 2 (frag: p, u)
+USER_LIBS = ({"serial_num": 2, "order": ["p", "u"], "num_itr_partial": 1,
+              "num_itr_unmapped": 1},
+             {"serial_num": 1, "order": ["u", "p"], "num_itr_partial": 0,
+              "num_itr_unmapped": 1})
+USER_SCHEDULE = [("u", 1), ("p", 0), ("u", 0)]
+
+
+def phase_user_schedule(sim, state: dict) -> None:
+    """(b) Phase 6's dataset under ``default: 0`` (``USER_LIBS``) through the
+    CLI on the card: the ``# itr`` lines are ``USER_SCHEDULE``, the output
+    tree is complete and N goes down."""
+    from figbird_tpu_torch.genome import Genome
+    from figbird_tpu_torch.io.fasta import read_fasta
+
+    src = json.loads(Path(state["cfg"]).read_text())
+    out = Path(state["cfg"]).parent / "user"
+    out.mkdir()
+    src["Directory"]["Output_Folder"] = str(out)
+    src["Parameters"]["default"] = 0
+    for lib, extra in zip(src["Read_Pairs"], USER_LIBS):
+        lib.update(extra)
+    cfg = out / "Config.json"
+    cfg.write_text(json.dumps(src, indent=1))
+    rc, err, wall, launches = cli_run([cfg])
+    assert rc == 0, f"the CLI exited with {rc}"
+    ran = [(m[2], int(m[3])) for m in ITR_N.finditer(err)]
+    wd = out / "Figbird"
+    tree = {str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file()}
+    draft = Genome.from_fasta(read_fasta(src["Directory"]["Draft_Genome"]))
+    final = Genome.from_fasta(read_fasta(wd / "FilledScaffolds_final.fa"))
+    log(f"phase 12b default: 0: wall {wall:.2f}s, iterations {ran} "
+        f"(expected {USER_SCHEDULE}), N {draft.count_n()} -> "
+        f"{final.count_n()}, {len(tree)} files, launches {launches}")
+    assert ran == USER_SCHEDULE, ran
+    missing = expected_tree(len(ran)) - tree
+    assert not missing, f"output tree lacks {sorted(missing)}"
+    assert final.count_n() < draft.count_n(), "N not reduced"
+
+
+def phase_resume(state: dict) -> None:
+    """(c) ``--resume --max-iterations 1`` on phase 6's output: the resume
+    line names phase 6's last filled assembly, the resumed iteration starts
+    from phase 6's final N, and the tree is written."""
+    wd = Path(state["wd"])
+    last = wd / "Filled_Scaffolds" / f"{state['n_itr']}filledContigs.fa"
+    rc, err, wall, launches = cli_run([state["cfg"], "--resume",
+                                       "--max-iterations", "1"])
+    assert rc == 0, f"the CLI exited with {rc}"
+    m = re.search(r"^# resuming from iteration (\d+): (.+)$", err, re.M)
+    itr = [m_[0] for m_ in ITR_N.finditer(err)]
+    log(f"phase 12c --resume: wall {wall:.2f}s, "
+        f"{m[0] if m else 'no resume line'}; {itr}; launches {launches}")
+    assert m and int(m[1]) == state["n_itr"] and Path(m[2]) == last, m
+    first = next(ITR_N.finditer(err))
+    assert len(itr) == 1 and int(first[4]) == state["n_final"], \
+        (itr, state["n_final"])
+    tree = {str(p.relative_to(wd)) for p in wd.rglob("*") if p.is_file()}
+    missing = expected_tree(state["n_itr"]) - tree
+    assert not missing, f"output tree lacks {sorted(missing)}"
+    assert (wd / "FilledScaffolds_final.fa").read_bytes() == (
+        wd / "Filled_Scaffolds" / "1filledContigs.fa").read_bytes(), \
+        "the final assembly differs from the resumed iteration's"
+
+
+# (d) the 3,072-read bucket: a 100 kb genome, 3 gaps of 500-1,500 bp,
+# insert 600, about 1,000x: a large gap's one-anchored free mates grow with
+# the depth, not with the gap's length
+BUCKET_SIM = dict(genome_len=100_000, n_contigs=2, n_gaps=3,
+                  gap_len_range=(500, 1500), read_len=101, insert_mean=600,
+                  insert_sd=50, coverage=1000.0, error_rate=0.005, seed=7)
+# the one gap's scan cap on both sides: the CPU's plain versions at 3,072
+# reads cost about three times the 1,024 bucket's
+BUCKET_SCAN = 2
+
+
+def cpu_fill(genome, gaps, bundles, model, kw) -> tuple:
+    """``fill_gaps`` on the CPU (a CpuJob's work): the run's record for
+    ``assert_runs_equal`` and the stats without their timers."""
+    res = fill_on("cpu", genome, gaps, bundles, model, "CPU side", **kw)[0]
+    out = genome.splice_gaps(gaps, res.gap_strings, list(res.gaptofill))
+    return (dict(n_after=out.count_n(), strings=res.gap_strings,
+                 gaptofill=np.asarray(res.gaptofill), contigs=out.contigs),
+            {k: v for k, v in res.stats.items() if not k.startswith("t_")})
+
+
+def phase_bucket_3072() -> tuple:
+    """(d) ``BUCKET_SIM``'s p- then u-iteration on the card, the launch
+    counts set to 0 just before each and read just after: K1-K4 launched at
+    3,072 reads, N reduced in each, accuracy of the combined gaps >= 0.95.
+    One gap at 3,072 reads alone through ``fill_gaps`` on the card, and on
+    the CPU in a CpuJob (compared in ``bucket_compare``).  Returns the
+    launches by kernel and by shape of both iterations, and the job with
+    the card's result."""
+    from figbird_tpu_torch import pipeline
+    from figbird_tpu_torch.combine import combine_gap_history
+    from figbird_tpu_torch.fill import driver
+
     t_all = time.time()
-    card = phase_device()
-    rows = phase_kernels()
-    u_rows = phase_kernels_unmapped()
-    phase_parity()
-    profile_run = "--profile" in sys.argv[1:]
-    sim = bench_sim()
-    launches = phase_main(sim, profile_run)
-    u_by_shape = phase_main_unmapped(sim, profile_run)
-    sched = phase_schedule(sim)
-    t0 = time.time()
-    k5_mesh_aligners = phase_mesh_aligners(sim)
-    mesh = phase_mesh_iterations(sim)
-    log(f"mesh phase {time.time() - t0:.1f}s")
-    t0 = time.time()
-    two = phase_two_processes(sim)
-    log(f"two-process phase {time.time() - t0:.1f}s")
-    t0 = time.time()
-    phase_sam(sim)
-    log(f"sam phase {time.time() - t0:.1f}s")
-    t0 = time.time()
-    large = phase_large_gap()
-    log(f"large-gap phase {time.time() - t0:.1f}s")
+    sim = simulate.simulate(simulate.SimConfig(**BUCKET_SIM))
+    gaps0 = sim.draft.find_gaps()
+    log(f"phase 12d dataset: {sim.truth.total_length()} bp, "
+        f"{2 * len(sim.reads1)} reads, gaps {[g.length for g in gaps0]} "
+        f"(simulated in {time.time() - t_all:.1f}s)")
+    pipe = Pipeline(_cfg(600, 101), sim.draft, [(sim.reads1, sim.reads2)],
+                    device=DEV)
+    by_shape, runs = {}, {}
+    for mode in ("p", "u"):
+        with Captured(pipeline, "fill_gaps") as fills, \
+                Captured(driver, "plan_gaps") as plans:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.time()
+            st = pipe.run_iteration(mode, 0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        shape = dict(sorted(ops.LAUNCHES_BY_SHAPE.items()))
+        by_shape[mode] = (dict(ops.LAUNCHES), shape)
+        runs[mode] = (fills.calls[0], plans.calls[0][2])
+        log(f"phase 12d {mode}-iteration: wall {wall:.2f}s, N {st.n_before}"
+            f" -> {st.n_after}, launches {dict(ops.LAUNCHES)}, by (kernel, "
+            f"reads, positions) {shape}; fill stats {pipe.last_fill_stats}")
+        assert st.n_after < st.n_before, f"phase 12d {mode}: N not reduced"
+    at_3072 = {k for _, m in by_shape.values() for k in m if k[1] == 3072}
+    missing = [k for k in FILL_K if not any(x[0] == k for x in at_3072)]
+    acc = chr14.fill_accuracy(sim, gaps0, [
+        cg.seq for cg in combine_gap_history(pipe.result.gap_history)])
+    log(f"phase 12d: kernels at 3,072 reads {sorted(at_3072)}; accuracy of "
+        f"the combined gaps {acc}")
+    assert not missing, f"phase 12d: not launched at 3,072 reads: {missing}"
+    assert acc["identity"] >= 0.95, f"phase 12d: accuracy {acc}"
+
+    # one gap at 3,072 reads: the u-iteration's own fill inputs
+    (f_args, f_kw, _), u_plans = runs["u"]
+    genome, gaps, bundles, model = f_args
+    big = [i for i, p in enumerate(u_plans)
+           if not p.skip and p.bundle.n_unmapped > 1024]
+    assert big, "phase 12d: no gap with more than 1,024 unmapped reads"
+    # the bucket pads every gap's reads to 3,072: the shortest gap has the
+    # narrowest window, the cheapest for the CPU side
+    gi = min(big, key=lambda i: (gaps[i].length, i))
+    kw = {k: v for k, v in f_kw.items() if k != "device"}
+    kw["max_scan_lengths"] = BUCKET_SCAN
+    one = (genome, [gaps[gi]], [bundles[gi]], model)
+    job = CpuJob("cpu_fill", *one, kw)
+    res, _, _, b_shape, rec = fill_on(DEV, *one, f"phase 12d gap {gi}", **kw)
+    stats = {k: v for k, v in res.stats.items() if not k.startswith("t_")}
+    log(f"phase 12d gap {gi} ({gaps[gi].length} bp, "
+        f"{bundles[gi].n_unmapped} unmapped reads, scan cap {BUCKET_SCAN}) on"
+        f" the card: launches by shape {b_shape}; phase "
+        f"{time.time() - t_all:.1f}s (its CPU side runs beside)")
+    assert any(k[1] == 3072 for k in b_shape), b_shape
+    return by_shape, (job, gi, rec, stats)
+
+
+def bucket_compare(pending) -> None:
+    """Phase 12d's one gap: the card's result against the CpuJob's."""
+    job, gi, rec, stats = pending
+    cpu_rec, cpu_stats = job.result()
+    assert_runs_equal(rec, cpu_rec, f"phase 12d gap {gi}")
+    assert stats == cpu_stats, f"phase 12d gap {gi}: fill stats differ"
+    log(f"phase 12d gap {gi}: card and CPU equal (gap string, gaptofill, "
+        f"fill stats)")
+
+
+def phase_flat_budget(sim) -> None:
+    """(e) The contig-range path past the replicated budget: a (reads 1,
+    genome 2) mesh of ``cuda:0`` repeated, ``align.core.HOST_FLAT_BUDGET``
+    below bench.py's genome length: the aligner keeps no replicated flat
+    (``supports_device_stats`` False), the model is learned on the host,
+    all five kernels launch, and the p-iteration's gap strings, gaptofill
+    and contigs equal phase 4's single-device iteration."""
+    from figbird_tpu_torch import pipeline
+    from figbird_tpu_torch.align import core
+    from figbird_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 2, devices=mesh_devices(2))
+    old = core.HOST_FLAT_BUDGET
+    core.HOST_FLAT_BUDGET = sim.draft.total_length() - 1
+    try:
+        pipe = Pipeline(_cfg(200, 101), sim.draft,
+                        [(sim.reads1, sim.reads2)], mesh=mesh,
+                        aligner_kwargs={"genome_shard": "contig"})
+        with Captured(pipeline, "Aligner") as als, \
+                Captured(pipeline, "_learn_model_host") as host:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.time()
+            st = pipe.run_iteration("p", 0)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        core.HOST_FLAT_BUDGET = old
+    launches = dict(ops.LAUNCHES)
+    al = als.calls[0][2]
+    log(f"phase 12e contig-range past the budget on {mesh.shape}: wall "
+        f"{wall:.2f}s, N {st.n_before} -> {st.n_after}, contig-sharded "
+        f"{al._contig_sharded}, supports_device_stats "
+        f"{al.supports_device_stats}, host model learning calls "
+        f"{len(host.calls)}, launches {launches}")
+    assert al._contig_sharded and al.supports_device_stats is False
+    assert host.calls, "the model was not learned on the host"
+    missing = [k for k, n in launches.items() if n == 0]
+    assert not missing, f"phase 12e: kernels not launched: {missing}"
+    assert_runs_equal(run_record(pipe, st), SINGLE["p"],
+                      "contig-range past the budget")
+    log("phase 12e: gap strings, gaptofill and contigs equal to phase 4's")
+
+
+def launches_at(record: dict, name: str, key=None) -> dict:
+    """A p- and u-iteration's launches of kernel ``name`` for the kernels
+    line: ``record`` maps mode to (launches by kernel, launches by (kernel,
+    reads, positions)); ``key`` (reads, positions) picks one shape."""
+    return {mode: (by_k[name] if key is None else by_s.get((name,) + key, 0))
+            for mode, (by_k, by_s) in record.items()}
+
+
+def main():
+    if sys.argv[1:2] == ["--cpu-job"]:
+        cpu_job_main(sys.argv[2:])
+        return
+    t_all = time.time()
+    # phase 3's CPU side runs beside the card phases from the start
+    parity_job = CpuJob("parity_side", "cpu",
+                        threads=max(1, (os.cpu_count() or 2) - 2))
+    sched_dir = Path(tempfile.mkdtemp(prefix="figbird_schedule_"))
+    pending = None
+    try:
+        card = phase_device()
+        rows = phase_kernels()
+        u_rows = phase_kernels_unmapped()
+        parity_card = parity_side(DEV)
+        profile_run = "--profile" in sys.argv[1:]
+        sim = bench_sim()
+        launches = phase_main(sim, profile_run)
+        u_by_shape = phase_main_unmapped(sim, profile_run)
+        sched, sched_state = phase_schedule(sim, sched_dir)
+        t0 = time.time()
+        k5_mesh_aligners = phase_mesh_aligners(sim)
+        mesh = phase_mesh_iterations(sim)
+        log(f"mesh phase {time.time() - t0:.1f}s")
+        t0 = time.time()
+        two = phase_two_processes(sim)
+        log(f"two-process phase {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_sam(sim)
+        log(f"sam phase {time.time() - t0:.1f}s")
+        t0 = time.time()
+        large = phase_large_gap()
+        log(f"large-gap phase {time.time() - t0:.1f}s")
+        # 12d first: its one gap's CPU side runs beside phase 11
+        t0 = time.time()
+        bucket, pending = phase_bucket_3072()
+        log(f"phase 12d {time.time() - t0:.1f}s (card side)")
+        chr14 = phase_chr14()
+        t0 = time.time()
+        phase_tiers(sim)
+        log(f"phase 12a {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_user_schedule(sim, sched_state)
+        log(f"phase 12b {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_resume(sched_state)
+        log(f"phase 12c {time.time() - t0:.1f}s")
+        t0 = time.time()
+        phase_flat_budget(sim)
+        log(f"phase 12e {time.time() - t0:.1f}s")
+        t0 = time.time()
+        parity_compare(parity_card, parity_job.result())
+        bucket_compare(pending)
+        log(f"waited {time.time() - t0:.1f}s for the CPU jobs")
+    finally:
+        parity_job.stop()
+        if pending is not None:
+            pending[0].stop()
+        shutil.rmtree(sched_dir, ignore_errors=True)
+    chr14_rec = {m: (chr14[m]["launches"], by_shape_of(chr14[m]))
+                 for m in ("p", "u")}
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["schedule_launches"] = sched[r["name"]]
         r["mesh_launches"] = mesh["p"][r["name"]]
         r["two_process_launches"] = two[r["name"]]
+        r["chr14_launches"] = launches_at(chr14_rec, r["name"])
+        r["bucket_3072_launches"] = launches_at(bucket, r["name"])
         if r["name"] == "align_score":
             r["mesh_aligner_launches"] = k5_mesh_aligners
     for r in u_rows:
         name, (reads, wp) = r["name"], r["key"]
         r["large_gap_launches"] = large.get((name, reads, wp), 0)
+        r["chr14_launches"] = launches_at(chr14_rec, name, (reads, wp))
+        r["bucket_3072_launches"] = launches_at(bucket, name, (reads, wp))
         if reads > 128:
             r["large_gap_launches_by_positions"] = {
                 str(k[2]): n for k, n in large.items()
                 if k[:2] == (name, reads)}
+            r["bucket_3072_launches_by_positions"] = {
+                mode: {str(k[2]): n for k, n in by_s.items()
+                       if k[:2] == (name, reads)}
+                for mode, (_, by_s) in bucket.items()}
     rows += u_rows_with_launches(u_rows, u_by_shape, mesh["u"])
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -355,3 +355,41 @@ def test_cli_trees_equal(tmp_path):
     for f in files:
         got = (trees["figbird_tpu_torch"] / f).read_bytes()
         assert got == (trees["figbird_tpu"] / f).read_bytes(), f
+
+
+@pytest.mark.slow
+def test_cli_resume_trees_equal(tmp_path):
+    """Both CLIs (each in its own process; the port's with ``--device cpu``)
+    on the CLI case's 20 kb dataset: ``--max-iterations 1``, then
+    ``--resume --max-iterations 1`` from that iteration's filled assembly;
+    the resume line names it, and every file of the two output trees is
+    byte-equal."""
+    trees = {}
+    for pkg, extra in (("figbird_tpu", []),
+                       ("figbird_tpu_torch", ["--device", "cpu"])):
+        out = tmp_path / pkg
+        out.mkdir()
+        cfg = _write_dataset(out, jump=False, genome_len=20_000,
+                             n_contigs=1, n_gaps=4, gap_len_range=(8, 40),
+                             seed=5)
+        for resume in ([], ["--resume"]):
+            r = subprocess.run(
+                [sys.executable, "-m", pkg, str(cfg), "--max-iterations",
+                 "1", *resume, *extra], cwd=REPO,
+                env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                         JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache"),
+                         OMP_NUM_THREADS="2"),
+                capture_output=True, text=True, timeout=3000)
+            assert r.returncode == 0, r.stderr[-3000:]
+            said = [ln for ln in r.stderr.splitlines()
+                    if ln.startswith("# resuming")]
+            assert said == ([f"# resuming from iteration 1: "
+                             f"{out / 'Figbird' / 'Filled_Scaffolds'}"
+                             f"/1filledContigs.fa"] if resume else []), said
+        trees[pkg] = out / "Figbird"
+    files = _tree(trees["figbird_tpu"])
+    assert files == _tree(trees["figbird_tpu_torch"]) == [
+        str(Path(f)) for f in TREE_1]
+    for f in files:
+        got = (trees["figbird_tpu_torch"] / f).read_bytes()
+        assert got == (trees["figbird_tpu"] / f).read_bytes(), f
