@@ -162,6 +162,18 @@ Phases (every one must pass; none is caught):
    On the kernels line every row carries the chr14 and 3,072-bucket runs'
    launches (``chr14_launches``, ``bucket_3072_launches``: by iteration;
    a p row the kernel's, an unmapped row those at its shape).
+13. full human — scripts/full_human_torch.py's flow on the card at
+   ``FH_GB`` and ``FH_COVERAGE`` (BASELINE.json config 5 cut to 2.2 Gb:
+   26 contigs, 400 gaps, a padded flat genome past 2^31 positions) on a
+   (reads 1, genome 2) mesh of the card repeated, the contig shards built
+   on the card: a p- and then a u-iteration, the first two contigs
+   contig-sharded against replicated (gap strings equal), the per-read
+   truth share below and past 2^31 (within 0.5 points), up to three gaps
+   past 2^31 on the card and (a CpuJob) the CPU (equal); N reduced in p,
+   accuracy >= 0.95, K5 launched on both shards in each iteration and
+   K1-K4 launched.  On the kernels line every row carries its launches
+   (``config5_launches``, by iteration; an unmapped row those at its
+   shape) and K5's row also by shard (``config5_launches_by_shard``).
 
 Before the last line come the kernels JSON and the card's ``nvidia-smi``
 name/power-limit line; the last line is the device JSON.
@@ -170,7 +182,6 @@ name/power-limit line; the last line is the device JSON.
 import contextlib
 import json
 import os
-import pickle
 import re
 import shutil
 import subprocess
@@ -195,6 +206,7 @@ from time_align import align_bound, align_inputs  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import chr14_scale_torch as chr14  # noqa: E402
+import full_human_torch as full_human  # noqa: E402
 from chr14_scale_torch import Captured  # noqa: E402
 from time_bands import band_inputs  # noqa: E402
 from time_counts import cuda_ms  # noqa: E402
@@ -832,62 +844,6 @@ def parity_compare(card: dict, cpu: dict) -> None:
                 "u gap strings differ"
 
 
-class CpuJob:
-    """``chip_smoke.py --cpu-job IN OUT`` in a process of its own: the
-    function of this module named in ``IN`` runs on the CPU beside the card
-    phases; ``result`` waits for it (at most ``timeout`` seconds from its
-    start) and returns what it returned.  A job that fails or outlives its
-    timeout fails the script; ``stop`` kills it if it still runs."""
-
-    def __init__(self, name: str, *args, threads: int | None = None,
-                 timeout: float = 1000.0):
-        self.name, self.timeout, self.t0 = name, timeout, time.time()
-        self.dir = Path(tempfile.mkdtemp(prefix="figbird_cpu_job_"))
-        with open(self.dir / "in.pkl", "wb") as fh:
-            pickle.dump((name, args), fh)
-        threads = threads or max(1, (os.cpu_count() or 2) // 2)
-        self.log = open(self.dir / "log", "w+")
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-job",
-             str(self.dir / "in.pkl"), str(self.dir / "out.pkl"),
-             str(threads)], stdout=self.log, stderr=subprocess.STDOUT,
-            env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
-
-    def result(self):
-        try:
-            rc = self.proc.wait(timeout=max(
-                1.0, self.timeout - (time.time() - self.t0)))
-            self.log.seek(0)
-            text = self.log.read()
-            log(f"CPU job {self.name}: exit {rc} after "
-                f"{time.time() - self.t0:.1f}s; its log:")
-            sys.stdout.write(text)
-            assert rc == 0, f"CPU job {self.name} failed"
-            with open(self.dir / "out.pkl", "rb") as fh:
-                return pickle.load(fh)
-        finally:
-            self.stop()
-
-    def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        self.log.close()
-        shutil.rmtree(self.dir, ignore_errors=True)
-
-
-def cpu_job_main(argv) -> None:
-    """The process of a ``CpuJob``: ``argv`` is IN, OUT and the thread
-    count."""
-    src, dst, threads = argv
-    torch.set_num_threads(int(threads))
-    with open(src, "rb") as fh:
-        name, args = pickle.load(fh)
-    out = globals()[name](*args)
-    with open(dst, "wb") as fh:
-        pickle.dump(out, fh)
-
-
 # ---------------------------------------------------------------- phase 4
 # the single-device default iterations of phases 4 and 5, by mode: what
 # the mesh and the two processes of phases 7 and 8 must give
@@ -1236,40 +1192,6 @@ def mesh_devices(n: int) -> list:
             for i in range(n)]
 
 
-@contextlib.contextmanager
-def k5_by_shard(al, by_shard: dict):
-    """Count K5's launches by genome shard while the sharded aligner ``al``
-    runs: its per-shard calls (the code-range path's ``align_batch``, the
-    contig-range path's ``score_candidates``) are wrapped and told apart by
-    the shard tables they are given."""
-    from figbird_tpu_torch.align import core
-
-    key = {}
-    for (r, g), cell in al._cells.items():
-        key[cell[2]["sorted_codes"].data_ptr() if isinstance(cell[2], dict)
-            else cell[0].data_ptr()] = g
-    contig = al._contig_sharded
-    module, name = (align_score, "score_candidates") if contig \
-        else (core, "align_batch")
-    fn = getattr(module, name)
-
-    def counted(*args, **kwargs):
-        g = key[args[0].data_ptr() if contig
-                else args[2]["sorted_codes"].data_ptr()]
-        before = ops.LAUNCHES["align_score"]
-        out = fn(*args, **kwargs)
-        by_shard[g] = by_shard.get(g, 0) + ops.LAUNCHES["align_score"] \
-            - before
-        return out
-
-    setattr(module, name, counted)
-    al._shard_fn.clear()  # the factories bind their callee when they run
-    try:
-        yield
-    finally:
-        setattr(module, name, fn)
-
-
 ALIGN_CMP = ("score", "aligned", "unique", "second")
 PLACE_CMP = ("pos", "strand", "clip_start", "clip_end", "n_mis", "alen")
 
@@ -1303,18 +1225,18 @@ def phase_mesh_aligners(sim):
         log(f"mesh aligners {preset}: replicated use_buckets=False "
             f"{time.time() - t0:.2f}s for {2 * len(sim.reads1)} reads")
         for path in ("code", "contig"):
-            t0 = time.time()
-            al = core.Aligner(idx, p, mesh=mesh, genome_shard=path,
-                              contig_shard_threshold=1, **kw)
-            t_init = time.time() - t0
-            by_shard = {}
-            with k5_by_shard(al, by_shard):
+            with chr14.K5ByShard() as k5:
+                t0 = time.time()
+                al = core.Aligner(idx, p, mesh=mesh, genome_shard=path,
+                                  contig_shard_threshold=1, **kw)
+                t_init = time.time() - t0
                 torch.cuda.synchronize()
                 ops.reset_launches()
                 t0 = time.time()
                 got = al.align_many(jobs)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
+            by_shard = k5.counts
             n_k5 = ops.LAUNCHES["align_score"]
             n_k5_all += n_k5
             for mate, (g, w) in enumerate(zip(got, want)):
@@ -1945,16 +1867,6 @@ BUCKET_SIM = dict(genome_len=100_000, n_contigs=2, n_gaps=3,
 BUCKET_SCAN = 2
 
 
-def cpu_fill(genome, gaps, bundles, model, kw) -> tuple:
-    """``fill_gaps`` on the CPU (a CpuJob's work): the run's record for
-    ``assert_runs_equal`` and the stats without their timers."""
-    res = fill_on("cpu", genome, gaps, bundles, model, "CPU side", **kw)[0]
-    out = genome.splice_gaps(gaps, res.gap_strings, list(res.gaptofill))
-    return (dict(n_after=out.count_n(), strings=res.gap_strings,
-                 gaptofill=np.asarray(res.gaptofill), contigs=out.contigs),
-            {k: v for k, v in res.stats.items() if not k.startswith("t_")})
-
-
 def phase_bucket_3072() -> tuple:
     """(d) ``BUCKET_SIM``'s p- then u-iteration on the card, the launch
     counts set to 0 just before each and read just after: K1-K4 launched at
@@ -2013,7 +1925,7 @@ def phase_bucket_3072() -> tuple:
     kw = {k: v for k, v in f_kw.items() if k != "device"}
     kw["max_scan_lengths"] = BUCKET_SCAN
     one = (genome, [gaps[gi]], [bundles[gi]], model)
-    job = CpuJob("cpu_fill", *one, kw)
+    job = chr14.CpuJob(chr14.cpu_fill, *one, kw)
     res, _, _, b_shape, rec = fill_on(DEV, *one, f"phase 12d gap {gi}", **kw)
     stats = {k: v for k, v in res.stats.items() if not k.startswith("t_")}
     log(f"phase 12d gap {gi} ({gaps[gi].length} bp, "
@@ -2078,6 +1990,33 @@ def phase_flat_budget(sim) -> None:
     log("phase 12e: gap strings, gaptofill and contigs equal to phase 4's")
 
 
+# ---------------------------------------------------------------- phase 13
+# the full-human phase: scripts/full_human_torch.py at 2.2 Gb and FH_COVERAGE
+FH_GB, FH_COVERAGE = 2.2, 1.0
+
+
+def phase_full_human() -> dict:
+    """scripts/full_human_torch.py's flow on the card at ``FH_GB`` and
+    ``FH_COVERAGE`` (module docstring, phase 13; its assertions are the
+    script's); its record."""
+    t0 = time.time()
+    out = full_human.run(FH_GB, FH_COVERAGE, device=DEV)
+    keep = ("genome_len", "flat", "n_reads", "n_gaps", "gaps_past",
+            "accuracy_p", "accuracy_p_u", "truth_share", "part2", "samples",
+            "simulate", "peak_host_rss_bytes")
+    log(f"full human {FH_GB} Gb at {FH_COVERAGE}x: "
+        f"{json.dumps({k: out[k] for k in keep})}")
+    for mode in ("p", "u"):
+        r = out[mode]
+        log(f"full human {mode}-iteration: wall {r['wall_s']}s, N "
+            f"{r['n_before']} -> {r['n_after']}, stages {r['stages']}, peak "
+            f"device {r['peak_device_bytes']} B, peak host RSS "
+            f"{r['peak_host_rss_bytes']} B, launches {r['launches']}, K5 by "
+            f"shard {r['k5_by_shard']}, by shape {r['launches_by_shape']}")
+    log(f"full human phase {time.time() - t0:.1f}s")
+    return out
+
+
 def launches_at(record: dict, name: str, key=None) -> dict:
     """A p- and u-iteration's launches of kernel ``name`` for the kernels
     line: ``record`` maps mode to (launches by kernel, launches by (kernel,
@@ -2088,11 +2027,11 @@ def launches_at(record: dict, name: str, key=None) -> dict:
 
 def main():
     if sys.argv[1:2] == ["--cpu-job"]:
-        cpu_job_main(sys.argv[2:])
+        chr14.cpu_job_main(sys.argv[2:], globals())
         return
     t_all = time.time()
     # phase 3's CPU side runs beside the card phases from the start
-    parity_job = CpuJob("parity_side", "cpu",
+    parity_job = chr14.CpuJob(parity_side, "cpu",
                         threads=max(1, (os.cpu_count() or 2) - 2))
     sched_dir = Path(tempfile.mkdtemp(prefix="figbird_schedule_"))
     pending = None
@@ -2123,7 +2062,7 @@ def main():
         t0 = time.time()
         bucket, pending = phase_bucket_3072()
         log(f"phase 12d {time.time() - t0:.1f}s (card side)")
-        chr14 = phase_chr14()
+        chr14_run = phase_chr14()
         t0 = time.time()
         phase_tiers(sim)
         log(f"phase 12a {time.time() - t0:.1f}s")
@@ -2136,6 +2075,7 @@ def main():
         t0 = time.time()
         phase_flat_budget(sim)
         log(f"phase 12e {time.time() - t0:.1f}s")
+        config5 = phase_full_human()
         t0 = time.time()
         parity_compare(parity_card, parity_job.result())
         bucket_compare(pending)
@@ -2145,8 +2085,10 @@ def main():
         if pending is not None:
             pending[0].stop()
         shutil.rmtree(sched_dir, ignore_errors=True)
-    chr14_rec = {m: (chr14[m]["launches"], by_shape_of(chr14[m]))
+    chr14_rec = {m: (chr14_run[m]["launches"], by_shape_of(chr14_run[m]))
                  for m in ("p", "u")}
+    config5_rec = {m: (config5[m]["launches"], by_shape_of(config5[m]))
+                   for m in ("p", "u")}
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["schedule_launches"] = sched[r["name"]]
@@ -2154,13 +2096,17 @@ def main():
         r["two_process_launches"] = two[r["name"]]
         r["chr14_launches"] = launches_at(chr14_rec, r["name"])
         r["bucket_3072_launches"] = launches_at(bucket, r["name"])
+        r["config5_launches"] = launches_at(config5_rec, r["name"])
         if r["name"] == "align_score":
             r["mesh_aligner_launches"] = k5_mesh_aligners
+            r["config5_launches_by_shard"] = {
+                m: config5[m]["k5_by_shard"] for m in ("p", "u")}
     for r in u_rows:
         name, (reads, wp) = r["name"], r["key"]
         r["large_gap_launches"] = large.get((name, reads, wp), 0)
         r["chr14_launches"] = launches_at(chr14_rec, name, (reads, wp))
         r["bucket_3072_launches"] = launches_at(bucket, name, (reads, wp))
+        r["config5_launches"] = launches_at(config5_rec, name, (reads, wp))
         if reads > 128:
             r["large_gap_launches_by_positions"] = {
                 str(k[2]): n for k, n in large.items()

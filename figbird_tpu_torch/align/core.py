@@ -483,25 +483,23 @@ class Aligner:
 
     def _init_contig_shards(self, index, ns: int) -> None:
         """Contig-range shards: each cell holds its row's slice of the flat
-        genome and its own table of local positions; the int64 shard bases
-        stay on the host (positions are globalized in ``_collect``).  The
+        genome and its own table of local positions, built on the first
+        row's device of its genome column (``build_contig_shards``: no host
+        sort) and copied to the other rows'; the int64 shard bases stay on
+        the host (positions are globalized in ``_collect``).  The
         replicated host-global flat for the banded tier and the statistics
         passes exists only within ``host_flat_ok``: past it, positions on
         the devices would wrap, so the banded tier is off and the model is
         learned on the host (``pipeline._learn_model_host``)."""
-        from ..parallel.sharded import split_index_by_contig
+        from ..parallel.sharded import build_contig_shards
 
-        cs = split_index_by_contig(index, ns)
-        rows, M = cs["rows"], cs["M"]
-        self._cs_base = np.asarray(cs["base"], np.int64)
+        cs = build_contig_shards(index, [self.mesh.device(0, g)
+                                         for g in range(ns)])
+        self._cs_base = cs["base"]
         self._cells = {}
         for (r, g), d in np.ndenumerate(self.mesh.devices):
-            self._cells[r, g] = (
-                torch.as_tensor(cs["flat2d"][g * rows : (g + 1) * rows]
-                                .reshape(-1), device=d),
-                int(cs["flatlen"][g]),
-                torch.as_tensor(cs["codes"][g * M : (g + 1) * M], device=d),
-                torch.as_tensor(cs["pos"][g * M : (g + 1) * M], device=d))
+            self._cells[r, g] = (cs["flat"][g].to(d), int(cs["flatlen"][g]),
+                                 cs["codes"][g].to(d), cs["pos"][g].to(d))
         if host_flat_ok(len(index.flat)):
             self._flat_on = self._replicate(
                 torch.as_tensor(as_rows(index.flat), device=self.device))

@@ -180,18 +180,56 @@ def build_index(genome: Genome, k: int = 15, pad: int = 256,
 
 
 SENT = 1 << 30  # >= 4**15: windows holding an N sort after every real k-mer
+SORT_PREFIX_BASES = 2  # sorted_kmers' bucket: the code's first bases
+
+
+def sorted_kmers(fl: torch.Tensor, k: int):
+    """Every k-mer window of the int8 sequence ``fl`` (one per position)
+    stably sorted by code, on ``fl``'s device.
+
+    codes[i] from k shifted adds, in place; windows with an N (or running
+    off the end) get ``SENT`` and go to the tail in position order; the
+    valid ones keep position order within a code (the host build's order).
+    The sort runs one prefix bucket (the code's first p =
+    ``SORT_PREFIX_BASES`` bases, at most 3: a bucket id is a byte) at a
+    time: each bucket's positions ascend as ``nonzero`` gives them and a
+    stable sort of their codes keeps that order, so the table is one
+    stable sort's, with about 1/4^p of its temporaries (a genome
+    shard's single sort needs several times its table beside it).  Returns
+    (codes int32, positions int32, n_valid)."""
+    m = fl.shape[0]
+    codes = torch.zeros(m, dtype=torch.int32, device=fl.device)
+    ok = torch.ones(m, dtype=torch.bool, device=fl.device)
+    for j in range(k):
+        codes.mul_(4)
+        codes[: m - j] += torch.clamp_max(fl[j:], 3)
+        ok[: m - j] &= fl[j:] < 4
+        ok[m - j :] = False
+    codes.masked_fill_(~ok, SENT)
+    del ok
+    p = min(SORT_PREFIX_BASES, k)
+    # SENT's prefix is 4^(15-k+p) and more; clamped to 4^p, past every
+    # bucket, before it is cut to a byte
+    pre = torch.clamp_max(codes >> (2 * (k - p)), 4**p).to(torch.uint8)
+    out_c = torch.full((m,), SENT, dtype=torch.int32, device=fl.device)
+    out_p = torch.empty(m, dtype=torch.int32, device=fl.device)
+    o = 0
+    for b in range(4 ** p):
+        idx = torch.nonzero(pre == b).squeeze(1)
+        c, order = torch.sort(codes[idx], stable=True)
+        out_c[o : o + len(idx)] = c
+        out_p[o : o + len(idx)] = idx[order]
+        o += len(idx)
+    out_p[o:] = torch.nonzero(codes == SENT).squeeze(1)
+    return out_c, out_p, o
 
 
 def build_device_tables(flat: np.ndarray, k: int, prefix_bases: int,
-                        device) -> tuple[dict, torch.Tensor]:
-    """Sorted k-mer table + prefix buckets on ``device``.
-
-    codes[i] from k shifted adds; windows with an N (or running off the
-    array) get the sentinel, so a STABLE argsort keeps valid entries in the
-    host build's relative order and pushes the rest to the tail;
-    ``pos`` is the argsort permutation; bucket starts by bincount + cumsum.
+                        device) -> tuple[dict, int]:
+    """Sorted k-mer table + prefix buckets on ``device``: ``sorted_kmers``
+    over the padded flat, bucket starts by bincount + cumsum.
     Returns (dict(starts, codes, pos) of 1-D int32 tensors padded like
-    ``as_rows``, n_valid device scalar).
+    ``as_rows``, n_valid).
     """
     n = len(flat)
     rows = (n + 127) // 128 + 2
@@ -201,26 +239,14 @@ def build_device_tables(flat: np.ndarray, k: int, prefix_bases: int,
     shift = 2 * (k - prefix_bases)
 
     fl = torch.as_tensor(flat_p, device=device)
-    m = fl.shape[0]
-    x = torch.clamp_max(fl, 3).to(torch.int32)
-    valid_n = (fl < 4).to(torch.int32)
-    codes = torch.zeros(m, dtype=torch.int32, device=device)
-    ok = torch.ones(m, dtype=torch.int32, device=device)
-    z = torch.zeros(k, dtype=torch.int32, device=device)
-    for j in range(k):
-        codes = codes * 4 + torch.cat([x[j:], z[:j]])
-        ok = ok * torch.cat([valid_n[j:], z[:j]])
-    ok = ok * (torch.arange(m, device=device) <= m - k)
-    keyed = torch.where(ok > 0, codes, SENT)
-    order = torch.argsort(keyed, stable=True)
-    scodes = keyed[order]
+    scodes, pos, n_valid = sorted_kmers(fl, k)
     prefix = torch.where(scodes < SENT, scodes >> shift, nb).long()
     counts = torch.bincount(prefix, minlength=nb + 1)
     starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
                         torch.cumsum(counts[:nb], dim=0)]).to(torch.int32)
     tables = dict(starts=_as_rows(starts), codes=_as_rows(scodes),
-                  pos=_as_rows(order.to(torch.int32)))
-    return tables, ok.sum()
+                  pos=_as_rows(pos))
+    return tables, n_valid
 
 
 def host_tables(index: KmerIndex, device) -> dict:

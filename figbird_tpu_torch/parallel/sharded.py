@@ -98,24 +98,41 @@ def split_index_by_contig(index, n_shards: int):
     contiguous contig range (with the inter-contig pad as leading/trailing
     margin, so windows never span shards) plus its own k-mer table with
     LOCAL int32 positions — the path for genomes beyond one device's memory
-    or beyond int32 flat positions.
+    or beyond int32 flat positions.  :func:`build_contig_shards` on the
+    CPU, in the reference's host layout.
 
     Returns dict(flat2d (ns*rows,128) int8, flatlen (ns,) int32,
     codes (ns*M,) int32, pos (ns*M,) int32, base (ns,) int64) — every
     per-shard block padded to the common width; ``base[s] + local`` is the
     global flat position.
     """
-    from ..align.core import as_rows
-    from ..align.index import _rolling_codes
-    from ..io.native import native_kmer_table
+    cs = build_contig_shards(index, [torch.device("cpu")] * n_shards)
+    return dict(flat2d=torch.cat(cs["flat"]).numpy().reshape(-1, 128),
+                flatlen=cs["flatlen"], codes=torch.cat(cs["codes"]).numpy(),
+                pos=torch.cat(cs["pos"]).numpy(), base=cs["base"],
+                rows=cs["rows"], M=cs["M"])
 
-    ns = n_shards
-    flat = index.flat
-    offsets = index.offsets
-    pad = index.pad
+
+def build_contig_shards(index, devices: list) -> dict:
+    """The contig-range shards of :func:`split_index_by_contig`, one on
+    each of ``devices`` in turn: contig ranges balanced by flat length, an
+    empty range (a pad-only stub) where contigs run out; each shard's flat
+    slice is uploaded and its table sorted on its device
+    (``align.index.sorted_kmers``, the sentinel tail cut), its temporaries
+    freed before the next.  A shard whose slice reaches 2^31 positions
+    raises: its local positions would wrap.
+
+    Returns dict(flat, codes, pos: one 1-D tensor per shard on its device,
+    padded to the common width (``flat`` to ``rows`` x 128 bases of N,
+    ``codes`` to ``M`` with the sentinel, ``pos`` with 0); flatlen (ns,)
+    int32, base (ns,) int64, rows, M)."""
+    from ..align.index import SENT, sorted_kmers
+
+    ns = len(devices)
+    offsets, pad, flat_len = index.offsets, index.pad, len(index.flat)
     n_contigs = len(offsets)
     # balance contig ranges by flat length
-    ends = np.concatenate([offsets[1:] - pad, [len(flat)]])
+    ends = np.concatenate([offsets[1:] - pad, [flat_len]])
     sizes = ends - (offsets - pad)
     target = sizes.sum() / ns
     bounds = [0]
@@ -128,44 +145,44 @@ def split_index_by_contig(index, n_shards: int):
         bounds.append(n_contigs)
     bounds.append(n_contigs)
 
-    shard_flats, shard_tables, bases = [], [], []
-    for s in range(ns):
+    flats, tables, bases = [], [], []
+    for s, dev in enumerate(devices):
         lo_c, hi_c = bounds[s], bounds[s + 1]
         if lo_c >= hi_c:  # empty shard: a pad-only stub
-            shard_flats.append(np.full(pad, 4, np.int8))
-            shard_tables.append((np.zeros(0, np.int32), np.zeros(0, np.int32)))
+            fl = torch.full((pad,), GAP_CODE, dtype=torch.int8, device=dev)
+            empty = torch.zeros(0, dtype=torch.int32, device=dev)
+            flats.append(fl)
+            tables.append((empty, empty))
             bases.append(0)
             continue
         base = int(offsets[lo_c]) - pad
-        end = int(ends[hi_c - 1]) + pad
-        sl = flat[base : min(end, len(flat))]
-        res = native_kmer_table(sl, index.k)
-        if res is None:  # numpy fallback, the same table
-            codes, valid = _rolling_codes(np.asarray(sl, np.int8), index.k)
-            idx = np.flatnonzero(valid)
-            order = np.argsort(codes[idx], kind="stable")
-            res = (codes[idx][order].astype(np.int32),
-                   idx[order].astype(np.int32))
-        shard_flats.append(np.asarray(sl, np.int8))
-        shard_tables.append(res)
+        end = min(int(ends[hi_c - 1]) + pad, flat_len)
+        if end - base >= 2**31:
+            raise ValueError(
+                f"contig-range shard {s} spans {end - base} flat positions, "
+                f"past int32 local positions; use more genome shards")
+        fl = torch.as_tensor(index.flat[base:end]).to(dev)
+        codes, pos, n_valid = sorted_kmers(fl, index.k)
+        flats.append(fl)
+        tables.append((codes[:n_valid], pos[:n_valid]))
         bases.append(base)
-
-    rows = max((len(f) + 127) // 128 + 2 for f in shard_flats)
-    M = max(max(len(t[0]) for t in shard_tables), 1)
-    SENT = np.int32(1 << 30)  # > any k<=15 code
-    flat2d = np.full((ns * rows, 128), 4, np.int8)
-    flatlen = np.zeros(ns, np.int32)
-    codes = np.full(ns * M, SENT, np.int32)
-    pos = np.zeros(ns * M, np.int32)
-    for s in range(ns):
-        f2 = as_rows(shard_flats[s]).reshape(-1, 128)
-        flat2d[s * rows : s * rows + len(f2)] = f2
-        flatlen[s] = len(shard_flats[s])
-        c, p = shard_tables[s]
-        codes[s * M : s * M + len(c)] = c
-        pos[s * M : s * M + len(p)] = p
-    return dict(flat2d=flat2d, flatlen=flatlen, codes=codes, pos=pos,
-                base=np.asarray(bases, np.int64), rows=rows, M=M)
+    rows = max((f.shape[0] + 127) // 128 + 2 for f in flats)
+    M = max(max(len(c) for c, _ in tables), 1)
+    out = dict(flat=[], codes=[], pos=[],
+               flatlen=np.asarray([f.shape[0] for f in flats], np.int32),
+               base=np.asarray(bases, np.int64), rows=rows, M=M)
+    for s in range(ns):  # each unpadded shard freed once padded
+        fl, (c, p) = flats[s], tables[s]
+        flats[s] = tables[s] = None
+        dev, n = fl.device, len(c)
+        out["flat"].append(torch.cat([fl, torch.full(
+            (rows * 128 - fl.shape[0],), GAP_CODE, dtype=torch.int8,
+            device=dev)]))
+        out["codes"].append(torch.cat([c, torch.full(
+            (M - n,), SENT, dtype=torch.int32, device=dev)]))
+        out["pos"].append(torch.cat([p, torch.zeros(
+            M - n, dtype=torch.int32, device=dev)]))
+    return out
 
 
 # ---------------------------------------------------------------- combine

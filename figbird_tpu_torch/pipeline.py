@@ -71,17 +71,32 @@ class PipelineResult:
 
 
 def _oriented_rows(batch, align: dict, rows: np.ndarray) -> np.ndarray:
-    """Reference-oriented sequences for a row subset."""
+    """Reference-oriented sequences for a row subset (an index array):
+    reverse-strand rows reverse-complemented within their length, the pad
+    left N.  A full-length row's is its flipped complement; only shorter
+    rows gather by position."""
     seq = batch.seq[rows]
-    lens = batch.length[rows]
-    st = align["strand"][rows]
-    n, L = seq.shape
-    comp = np.asarray(dtypes.COMPLEMENT, np.int8)[seq]
-    src = lens[:, None] - 1 - np.arange(L)[None, :]
-    rc = np.where(src >= 0,
-                  np.take_along_axis(comp, np.clip(src, 0, L - 1), axis=1),
-                  dtypes.GAP_CODE).astype(np.int8)
-    return np.where(st[:, None] == 1, rc, seq)
+    L = seq.shape[1]
+    rev = np.flatnonzero(align["strand"][rows] == 1)
+    comp = np.asarray(dtypes.COMPLEMENT, np.int8)
+    rc = comp[seq[rev, ::-1]]
+    lens = batch.length[rows][rev]
+    short = np.flatnonzero(lens < L)
+    if short.size:
+        src = lens[short, None] - 1 - np.arange(L)[None, :]
+        rc[short] = np.where(
+            src >= 0, np.take_along_axis(comp[seq[rev[short]]],
+                                         np.clip(src, 0, L - 1), axis=1),
+            dtypes.GAP_CODE)
+    seq[rev] = rc
+    return seq
+
+
+def _flat_windows(flat: np.ndarray, starts: np.ndarray, L: int) -> np.ndarray:
+    """``flat[start : start + L]`` for every start, (n, L) int8: rows of a
+    strided view of ``flat``, with no (n, L) index array."""
+    return np.lib.stride_tricks.sliding_window_view(flat, L)[
+        np.asarray(starts, np.int64)]
 
 
 def _model_indel_events(m, a1, a2, r1, r2):
@@ -131,7 +146,7 @@ def _learn_model_host(idx, pt, a1, a2, r1, r2, contig_lengths, partial_flag,
     # per-pair flush never counts the LAST model pair (Figbird.cpp:1303-1338)
     L2 = r2.seq.shape[1]
     win2 = a2["pos"][m].astype(np.int64)
-    from2 = idx.flat[win2[:, None] + np.arange(L2)[None, :]]
+    from2 = _flat_windows(idx.flat, win2, L2)
     lg2 = error_model.alignment_error_log10(
         model, o2m, r2.length[m], a2["strand"][m], a2["mism"][m], from2,
         clip_start=a2["clip_start"][m], clip_end=a2["clip_end"][m])
@@ -266,8 +281,7 @@ def _learn_model_device(idx, pt, a1, a2, r1, r2, contig_lengths,
     rows2 = np.flatnonzero(m_hist & indel2)
     if rows2.size:
         L2 = r2.seq.shape[1]
-        from2 = idx.flat[a2["pos"][rows2].astype(np.int64)[:, None]
-                         + np.arange(L2)[None, :]]
+        from2 = _flat_windows(idx.flat, a2["pos"][rows2], L2)
         vals = np.concatenate([vals, error_model.alignment_error_log10(
             model, _oriented_rows(r2, a2, rows2), r2.length[rows2],
             a2["strand"][rows2], _indel_mism_rows(a2, rows2, L2), from2,
@@ -518,6 +532,9 @@ class Pipeline:
                 elif self.saved_model is None:
                     self.saved_model = model  # the iteration-1 snapshot
                     self.saved_n_model = n_model
+        # the aligner's device copies go before the unmapped pass builds its
+        # own (a human-scale contig-sharded index holds about 20 GB)
+        del al
 
         with self.timer.stage("triage"):
             tri = assign.Triage(gaps, max_distance=maxD1,

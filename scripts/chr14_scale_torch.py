@@ -32,15 +32,24 @@ kernels launched in each iteration.  The p-iteration's N after is printed
 beside the reference's 265,969 (``BENCH_chr14_r05.json``), not asserted.
 The last line of standard output is one JSON object; the script writes no
 file.  It runs on the card and raises where there is none.
+
+The module also holds what ``full_human_torch.py`` and ``chip_smoke.py``
+share with it: ``Captured``, ``K5ByShard`` (K5's launches by genome
+shard), ``CpuJob`` (a function on the CPU in a process of its own) and
+``cpu_fill``.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
+import pickle
 import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -111,6 +120,138 @@ class Captured:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+class K5ByShard:
+    """K5's launches by genome shard while entered, in ``counts`` (shard ->
+    launches): the per-shard calls of the genome-sharded aligner built
+    last (the code-range path's ``align_batch``, the contig-range path's
+    ``score_candidates``), told apart by the shard tables or flat genome
+    slice they are given.  Calls on no shard of that aligner are not
+    counted."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self._shard_of: dict = {}
+
+    def reset(self) -> None:
+        self.counts.clear()
+
+    @staticmethod
+    def _key(tensor):
+        return None if tensor is None else tensor.data_ptr()
+
+    def _counted(self, fn, key_of):
+        def counted(*args, **kwargs):
+            before = ops.LAUNCHES["align_score"]
+            out = fn(*args, **kwargs)
+            g = self._shard_of.get(key_of(args))
+            if g is not None:
+                self.counts[g] = (self.counts.get(g, 0)
+                                  + ops.LAUNCHES["align_score"] - before)
+            return out
+        return counted
+
+    def __enter__(self):
+        from figbird_tpu_torch.align import core
+        from figbird_tpu_torch.ops import align_score
+
+        init = core.Aligner.__init__
+
+        def watched(al, *args, **kwargs):
+            init(al, *args, **kwargs)
+            if al._genome_sharded:
+                self._shard_of = {self._key(
+                    cell[2]["sorted_codes"] if isinstance(cell[2], dict)
+                    else cell[0]): g for (_, g), cell in al._cells.items()}
+
+        self._saved = [(core.Aligner, "__init__", init),
+                       (core, "align_batch", core.align_batch),
+                       (align_score, "score_candidates",
+                        align_score.score_candidates)]
+        core.Aligner.__init__ = watched
+        core.align_batch = self._counted(
+            core.align_batch, lambda a: self._key(a[2].get("sorted_codes")))
+        align_score.score_candidates = self._counted(
+            align_score.score_candidates, lambda a: self._key(a[0]))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class CpuJob:
+    """``fn(*args)`` on the CPU in a process of its own, beside the card's
+    work: the script that defines ``fn`` runs as ``SCRIPT --cpu-job IN OUT
+    THREADS`` (its main hands that to ``cpu_job_main``).  ``result`` waits
+    for it (at most ``timeout`` seconds from its start) and returns what
+    it returned.  A job that fails or outlives its timeout raises;
+    ``stop`` kills it if it still runs."""
+
+    def __init__(self, fn, *args, threads: int | None = None,
+                 timeout: float = 1000.0):
+        self.name, self.timeout, self.t0 = fn.__name__, timeout, time.time()
+        self.dir = tempfile.mkdtemp(prefix="figbird_cpu_job_")
+        with open(os.path.join(self.dir, "in.pkl"), "wb") as fh:
+            pickle.dump((fn.__name__, args), fh)
+        threads = threads or max(1, (os.cpu_count() or 2) // 2)
+        self.log = open(os.path.join(self.dir, "log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(inspect.getfile(fn)),
+             "--cpu-job", os.path.join(self.dir, "in.pkl"),
+             os.path.join(self.dir, "out.pkl"), str(threads)],
+            stdout=self.log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS=str(threads)))
+
+    def result(self):
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, self.timeout - (time.time() - self.t0)))
+            self.log.seek(0)
+            text = self.log.read()
+            log(f"CPU job {self.name}: exit {rc} after "
+                f"{time.time() - self.t0:.1f}s; its log:")
+            sys.stderr.write(text)
+            assert rc == 0, f"CPU job {self.name} failed"
+            with open(os.path.join(self.dir, "out.pkl"), "rb") as fh:
+                return pickle.load(fh)
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpu_job_main(argv, scope: dict) -> None:
+    """The process of a ``CpuJob``: ``argv`` is IN, OUT and the thread
+    count; the job's function is looked up in ``scope``, the running
+    script's globals."""
+    src, dst, threads = argv
+    torch.set_num_threads(int(threads))
+    with open(src, "rb") as fh:
+        name, args = pickle.load(fh)
+    out = scope[name](*args)
+    with open(dst, "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def cpu_fill(genome, gaps, bundles, model, kw) -> tuple:
+    """``fill_gaps`` on the CPU (a ``CpuJob``'s work): the run's record (N
+    after, gap strings, gaptofill, the spliced contigs) and the fill's
+    stats without their timers."""
+    t0 = time.time()
+    res = driver.fill_gaps(genome, gaps, bundles, model, device="cpu", **kw)
+    out = genome.splice_gaps(gaps, res.gap_strings, list(res.gaptofill))
+    log(f"CPU fill of {len(gaps)} gaps: {time.time() - t0:.2f}s, N "
+        f"{genome.count_n()} -> {out.count_n()}, stats {res.stats}")
+    return (dict(n_after=out.count_n(), strings=res.gap_strings,
+                 gaptofill=np.asarray(res.gaptofill), contigs=out.contigs),
+            {k: v for k, v in res.stats.items() if not k.startswith("t_")})
 
 
 def _sync(dev) -> None:
@@ -372,6 +513,9 @@ def run(genome_mb: float = FULL_MB, n_gaps: int | None = None, device=None,
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cpu-job"]:
+        cpu_job_main(argv[1:], globals())
+        return 0
     n_gaps = int(argv[0]) if argv else None
     genome_mb = float(argv[1]) if len(argv) > 1 else FULL_MB
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -29,7 +29,6 @@ import figbird_tpu_torch.pipeline as t_pipeline
 from figbird_tpu_torch import convert
 from figbird_tpu_torch.align import core
 from figbird_tpu_torch.align.pairing import build_pair_table
-from figbird_tpu_torch.io import native
 from figbird_tpu_torch.parallel import make_mesh, psum_stats, sharded
 
 torch.set_num_threads(2)
@@ -123,17 +122,18 @@ def test_split_index_by_code_equal(sims, n_shards):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("k", [15, 11])
 @pytest.mark.parametrize("n_contigs,n_shards", [(6, 1), (6, 2), (6, 3),
                                                 (6, 4), (2, 4)])
-def test_split_index_by_contig_equal(sims, monkeypatch, n_contigs, n_shards,
-                                     use_native):
-    """Contig-range shards (flat slices, local tables, int64 bases) as the
-    reference's, with the native k-mer sorter and with its numpy fallback;
-    two contigs over four shards leave shards empty (pad-only stubs)."""
-    _, idx = sims[n_contigs]
-    if not use_native:
-        monkeypatch.setattr(native, "native_kmer_table", lambda *a: None)
+def test_split_index_by_contig_equal(sims, n_contigs, n_shards, k):
+    """Contig-range shards (flat slices, local tables, int64 bases; the
+    tables sorted by ``build_contig_shards`` on the CPU) as the
+    reference's, at k = 15 and at k = 11 (where the N windows' sentinel
+    has a bucket id past a byte); two contigs over four shards leave shards empty
+    (pad-only stubs)."""
+    sim, idx = sims[n_contigs]
+    if k != idx.k:
+        idx = r_build_index(sim.draft, k=k)
     got = sharded.split_index_by_contig(convert.kmer_index(idx), n_shards)
     want = r_sharded.split_index_by_contig(idx, n_shards)
     assert sorted(got) == sorted(want)

@@ -291,17 +291,19 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_nothing_of_the_reference():
-    """No module of the port, nor its GPU scripts (the chr14-scale run
-    among them), has an import statement that names ``jax`` or
-    ``figbird_tpu`` (``figbird_tpu_torch`` aside)."""
+    """No module of the port, nor its GPU scripts (the chr14-scale and
+    full-human runs among them), has an import statement that names
+    ``jax`` or ``figbird_tpu`` (``figbird_tpu_torch`` aside)."""
     pat = re.compile(r"^\s*(from|import)\s+(figbird_tpu|jax|jaxlib)(\.|\s|$)",
                      re.M)
     files = sorted(Path(REPO, "figbird_tpu_torch").rglob("*.py")) \
         + [Path(REPO, "chip_smoke.py"), Path(REPO, "time_counts.py"),
-           Path(REPO, "scripts", "chr14_scale_torch.py")]
+           Path(REPO, "scripts", "chr14_scale_torch.py"),
+           Path(REPO, "scripts", "full_human_torch.py")]
     assert len(files) > 20
     assert all(f.is_file() for f in files)
-    assert Path(REPO, "scripts", "chr14_scale_torch.py") in files
+    for script in ("chr14_scale_torch.py", "full_human_torch.py"):
+        assert Path(REPO, "scripts", script) in files, script
     for mod in ("parallel/mesh", "parallel/sharded", "parallel/distributed",
                 "io/sam", "golden"):
         assert Path(REPO, "figbird_tpu_torch", f"{mod}.py") in files, mod
