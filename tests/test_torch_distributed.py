@@ -204,7 +204,7 @@ def two(tmp_path_factory):
     """The workers with the capped p-iteration, and meanwhile the port's
     single-process run of it here."""
     return run_two(tmp_path_factory.mktemp("two"), SMALL, lambda: run_record(
-        *p_iteration(SMALL, distributed=False)))
+        *p_iteration(SMALL, distributed=False)), timeout=60)
 
 
 def test_merges_two_processes_equal_one(two):

@@ -310,7 +310,7 @@ def test_cli_runs_without_jax(tmp_path):
         [sys.executable, "-c", _CLI, str(cfg), "--device", "cpu",
          "--max-iterations", "1"], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=300)
+        text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     wd = tmp_path / "Figbird"
     assert _tree(wd) == [str(Path(f)) for f in TREE_1]
