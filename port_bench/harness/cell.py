@@ -83,8 +83,11 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
     try:
         t0 = time.time()
         sim = inputs.simulate(cell.config, seed)
-        log(f"simulated {sum(map(len, sim.truth))} bp, {2 * len(sim.seq1)} "
-            f"reads in {time.time() - t0:.2f} s")
+        libs = sim.libraries()
+        log(f"simulated {sum(map(len, sim.truth))} bp, "
+            f"{sum(2 * len(r.seq1) for r in libs)} reads of {len(libs)} "
+            f"librar{'y' if len(libs) == 1 else 'ies'} in "
+            f"{time.time() - t0:.2f} s")
         if cell.traffic["unit"] == "iteration":
             unit = capture.IterationUnit(capture.package(capture.PORT), cell,
                                          sim, device)
@@ -172,7 +175,7 @@ def run_cell(cell: registry.Cell, seed: int, seconds: float, trace: bool,
         t0 = time.time()
         own, digests, in_window = [], [], []
         for r, w, smp in units:
-            x = compare.direct_numbers(r, sim, seed) \
+            x = compare.direct_numbers(r, sim, cell.config, seed) \
                 if r.kind == "iteration" else {}
             if smp is not None:
                 x.update(calls.numbers(smp))
@@ -233,6 +236,7 @@ def _profile(cell, unit, records, device, tr) -> dict:
 
     parse_calls: list = []
     ops = tracing.OpCalls(registry.roofline_ops(cell.root))
+    t0 = time.time()
     with tracing.stage_labels(), ops.active(), \
             _parse_timers(cell.traffic["mode"] == "run", parse_calls,
                           "parse"), \
@@ -242,6 +246,8 @@ def _profile(cell, unit, records, device, tr) -> dict:
             for _ in range(int(cell.traffic["profile_units"])):
                 records.append(unit())
             _sync(device)
+    log(f"profiled {cell.traffic['profile_units']} {unit.kind}(s) in "
+        f"{time.time() - t0:.2f} s, the profiler's stop included")
     t0 = time.time()
     out = tracing.profile_summary(prof)
     log(f"profile read in {time.time() - t0:.2f} s: busy {out['busy_s']:.4f}"

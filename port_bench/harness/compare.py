@@ -21,10 +21,14 @@ each full unit's outputs by ``direct_numbers``:
   the draft spliced, by a direct loop, with the port's own gap strings (the
   splice judged apart from the fill);
 - ``placed_off_truth``: of a sample of read pairs drawn from the seed whose
-  mates lie where the draft holds the truth unchanged, mates that the
-  aligner leaves unaligned or places elsewhere, or on the other strand,
-  than where the simulation drew them (mate 1 forward at the fragment's
-  start, mate 2 reverse at its end less a read);
+  mates lie where the draft holds the truth unchanged and carry at most
+  ``MAX_SUBSTITUTIONS`` substitutions each, mates that the aligner leaves
+  unaligned or places elsewhere, or on the other strand, than where the
+  simulation drew them (mate 1 forward at the fragment's start, mate 2
+  reverse at its end less a read, once an RF library is reversed); of
+  every library whose alignments the unit returns: the minimum-insert
+  library's partial pass and, in a u-iteration, the unmapped pass's library
+  end to end, each against its own truth;
 
 and a sample of the calls of one unit to the EM's and the aligner's ops
 (``harness/calls.py``).
@@ -200,7 +204,7 @@ def strings_only(strings: list, want: Digest) -> dict:
             / max(len(want.strings), 1)}
 
 
-def direct_numbers(rec, sim, seed: int, n_pairs: int = 2000,
+def direct_numbers(rec, sim, config: dict, seed: int, n_pairs: int = 2000,
                    margin: int = 32) -> dict:
     """A full iteration unit's outputs judged by the plain reference."""
     spliced = direct.splice(
@@ -210,29 +214,65 @@ def direct_numbers(rec, sim, seed: int, n_pairs: int = 2000,
     got = [np.asarray(c, np.int8) for c in rec.genome.contigs]
     n_off = sum(not np.array_equal(a, b) for a, b in zip(got, spliced)) \
         + abs(len(got) - len(spliced))
-
-    L = sim.seq1.shape[1]
-    rng = np.random.default_rng([int(seed), 0x9A7])
-    pick = np.sort(rng.choice(len(sim.true_pos),
-                              min(n_pairs, len(sim.true_pos)), replace=False))
-    ci, s1 = sim.true_contig[pick], sim.true_pos[pick]
-    s2 = s1 + sim.true_insert[pick] - L
-    keep = direct.clean_spans(sim.truth, sim.draft, ci, s1, L, margin) \
-        & direct.clean_spans(sim.truth, sim.draft, ci, s2, L, margin)
-    pick, ci, s1, s2 = pick[keep], ci[keep], s1[keep], s2[keep]
     # the aligner's positions are in its padded flat draft: ``pad`` gap
     # codes before each contig (the index's layout, not derived from data)
     from figbird_tpu_torch.align.index import build_index
 
     pad = inspect.signature(build_index).parameters["pad"].default
-    lens = [len(c) for c in sim.draft]
-    offsets = np.r_[0, np.cumsum(lens)] + pad * np.arange(1, len(lens) + 2)
+    libs, blocks = sim.libraries(), inputs.library_blocks(config)
     off = 0
-    for a, start, strand in zip(rec.alignments[:2], (s1, s2), (0, 1)):
-        off += direct.placed_off_truth(
-            offsets, ci, start, strand, a["aligned"][pick], a["pos"][pick],
-            a["strand"][pick])
+    for i, (k, whole) in enumerate(rec.aligned):
+        off += _placed_off(sim, libs[k], blocks[k], k, whole,
+                           rec.alignments[2 * i : 2 * i + 2], seed, pad,
+                           n_pairs, margin)
     return {"spliced_contigs": int(n_off), "placed_off_truth": off}
+
+
+# the most substitutions a judged mate carries: the aligner seeds from 4
+# k-mers of 15 bases at fixed offsets (as the JAX package's does), so a
+# read with an error in each is left unaligned by design, never misplaced
+MAX_SUBSTITUTIONS = 3
+
+
+def _placed_off(sim, reads, block: dict, k: int, whole: bool, mates: list,
+                seed: int, pad: int, n_pairs: int, margin: int) -> int:
+    """Of a sample of library ``k``'s pairs drawn from the seed whose mates
+    lie where the draft holds the truth, on a contig the pass aligned
+    against (the whole draft, else the contigs that hold a gap), and carry
+    at most ``MAX_SUBSTITUTIONS`` each, mates placed off where the
+    simulation drew them: mate 1 at the fragment's start and mate 2 at its
+    end less a read, on the strands the library's orientation gives once
+    reversed as its ``is_reverse`` says (FR: mate 1 forward, mate 2
+    reverse)."""
+    L = reads.seq1.shape[1]
+    rng = np.random.default_rng([int(seed), 0x9A7] + ([k] if k else []))
+    pick = np.sort(rng.choice(len(reads.true_pos),
+                              min(n_pairs, len(reads.true_pos)),
+                              replace=False))
+    ci, s1 = reads.true_contig[pick], reads.true_pos[pick]
+    s2 = s1 + reads.true_insert[pick] - L
+    held = np.array([whole or bool((c == direct.N_CODE).any())
+                     for c in sim.draft])
+    rf = reads.orientation == "RF"          # mate 1 drawn reverse
+    keep = held[ci] \
+        & direct.clean_spans(sim.truth, sim.draft, ci, s1, L, margin) \
+        & direct.clean_spans(sim.truth, sim.draft, ci, s2, L, margin) \
+        & (direct.substitutions(sim.truth, ci, s1, reads.seq1[pick], rf)
+           <= MAX_SUBSTITUTIONS) \
+        & (direct.substitutions(sim.truth, ci, s2, reads.seq2[pick], not rf)
+           <= MAX_SUBSTITUTIONS)
+    pick, ci, s1, s2 = pick[keep], ci[keep], s1[keep], s2[keep]
+    lens = [len(c) for c, h in zip(sim.draft, held) if h]
+    offsets = np.r_[0, np.cumsum(lens)] + pad * np.arange(1, len(lens) + 2)
+    at = (np.cumsum(held) - 1)[ci]          # the contig in the pass's draft
+    rf_read = rf != bool(block.get("is_reverse", 0))
+    off = 0
+    for a, start, strand in zip(mates, (s1, s2),
+                                (1, 0) if rf_read else (0, 1)):
+        off += direct.placed_off_truth(
+            offsets, at, start, strand, a["aligned"][pick], a["pos"][pick],
+            a["strand"][pick])
+    return off
 
 
 def judge(numbers: dict, limits: dict) -> dict:

@@ -4,11 +4,18 @@ mix, a per-layer metric or an op's roofline is added by adding files.
 - ``BENCHMARK.json`` at the checkout's root: the cells, configurations and
   metrics;
 - ``port_bench/configs/<config>.json``: a configuration (named by the
-  ``file`` of its entry);
-- ``port_bench/traffic/<traffic>.json``: a traffic mix;
+  ``file`` of its entry): the truth and draft with library 0
+  (``simulation``, ``library``), and any further libraries on the same
+  truth (``further_libraries``: each its own ``simulation`` of the reads,
+  with an ``orientation`` ``FR`` or ``RF``, and its own ``library``);
+- ``port_bench/traffic/<traffic>.json``: a traffic mix (an iteration's
+  ``mode`` and the library ``lib`` of a u-iteration, default 0, or whole
+  runs);
 - ``port_bench/workloads/<cell>.json``: the cell's limits for ``correct``;
 - ``port_bench/metrics/<metric>.json``: a per-layer metric's reader, as
-  data: the ``Trace`` method that reads it and that method's arguments
+  data: the ``Trace`` method that reads it and that method's arguments,
+  such as ``stage_mean`` of ``["p", "fill"]`` or, in a run cell, of
+  ``["run", "u:fill"]`` (a run's stage seconds by the iteration's mode)
   (``<metric>.py`` with a ``read(trace)`` where a metric needs code); its
   layer, unit and ``moves`` are ``BENCHMARK.json``'s alone;
 - ``port_bench/roofline/<op>.py``: the bytes and operations of one call of

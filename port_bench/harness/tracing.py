@@ -18,8 +18,10 @@
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import importlib
+import itertools
 import sys
 import time
 from collections import Counter
@@ -163,6 +165,33 @@ def timed_calls(module, name: str, seconds: list, label: str | None = None):
         setattr(module, name, fn)
 
 
+class _Ranges:
+    """Named host ranges ``(name, start, end)``, which nest or follow one
+    another (one thread's ``record_function`` ranges), for finding the
+    innermost one that holds a time, as a scan of every range finds it: a
+    bisection and a walk back over the ranges still open then, so reading a
+    profile grows with its events, not with its events times its ranges."""
+
+    def __init__(self, ranges):
+        self.ranges = sorted(ranges, key=lambda r: (r[1], -r[2]))
+        self.starts = [a for _, a, _ in self.ranges]
+        # the latest end of the ranges that start up to each one
+        self.reach = list(itertools.accumulate(
+            (b for _, _, b in self.ranges), max))
+
+    def at(self, t, closed: bool):
+        """The least long range holding ``t`` (its end included where
+        ``closed``), or None."""
+        best = None
+        j = bisect.bisect_right(self.starts, t) - 1
+        while j >= 0 and self.reach[j] >= t:
+            name, a, b = self.ranges[j]
+            if t < b or (closed and t == b):
+                best = min(best or (b - a, name), (b - a, name))
+            j -= 1
+        return None if best is None else best[1]
+
+
 def _union(spans):
     """Merged intervals of ``spans`` (start, end), sorted."""
     merged = []
@@ -208,31 +237,31 @@ def profile_summary(prof) -> dict:
     busy_s = sum(b - a for a, b in busy) / 1e9
     by_op: dict = {}
     op_s: dict = {}
+    op_ranges = _Ranges(ops)
     for name, a, b, corr, linked in dev:
         by_op[name] = by_op.get(name, 0.0) + (b - a) / 1e9
         t = launch_at.get(corr, cpu_at.get(linked))
         if t is None:
             continue
-        inner = [(b0 - a0, n) for n, a0, b0 in ops if a0 <= t <= b0]
-        if inner:
-            op = min(inner)[1]
+        op = op_ranges.at(t, closed=True)
+        if op is not None:
             op_s[op] = op_s.get(op, 0.0) + (b - a) / 1e9
     top = sorted(by_op.items(), key=lambda x: -x[1])[:10]
 
-    def stage_at(t):
-        inner = [(b - a, n) for n, a, b in stages if a <= t < b]
-        return min(inner)[1] if inner else "outside any stage"
-
+    stage_ranges = _Ranges(stages)
     idle: dict = {}
     edges = [window[0]] + [x for iv in busy for x in iv] + [window[1]]
     for i in range(0, len(edges), 2):
         a, b = edges[i], edges[i + 1]
         if b > a:
-            label = stage_at((a + b) / 2)
+            label = stage_ranges.at((a + b) / 2, closed=False) \
+                or "outside any stage"
             idle[label] = idle.get(label, 0.0) + (b - a) / 1e9
     spill: dict = {}
+    busy_starts = [a for a, _ in busy]
     for name, a, b in stages:
-        past = next((iv[1] - b for iv in busy if iv[0] <= b < iv[1]), 0.0)
+        k = bisect.bisect_right(busy_starts, b) - 1
+        past = busy[k][1] - b if k >= 0 and b < busy[k][1] else 0.0
         spill[name] = max(spill.get(name, 0.0), past / 1e6)
     return {"busy_s": busy_s, "window_s": (window[1] - window[0]) / 1e9,
             "device_ops": [[n, s] for n, s in top],
@@ -254,7 +283,9 @@ class Trace:
 
     def stage_mean(self, mode: str, *names: str):
         """Seconds in the named stages per unit of the window, or None in
-        another mode."""
+        another mode.  An iteration's stages are the ``StageTimer``'s
+        names (``"fill"``); a run's are summed over its iterations by their
+        mode (``"u:fill"``)."""
         if self.mode != mode or not self.stages:
             return None
         return sum(sum(st.get(n, 0.0) for n in names)

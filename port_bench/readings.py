@@ -51,7 +51,7 @@ def read(cell, seed: int, controls: dict, device="cuda") -> tuple:
         rec = unit()
     numbers = compare.count(compare.digest(rec), ref)
     if rec.kind == "iteration":
-        numbers.update(compare.direct_numbers(rec, sim, seed))
+        numbers.update(compare.direct_numbers(rec, sim, cell.config, seed))
     numbers.update(calls.numbers(sample))
     unit.close()
     out = [("sound", numbers, time.time() - t0)]

@@ -25,6 +25,8 @@ inputs, in float64 (integers where the step is integer):
   at or under ``cov_thresh``;
 - ``splice``: each N-run of a draft contig (a run at the contig's very end
   is not a gap) replaced by its fill, ``skip`` more bases dropped after it;
+- ``substitutions``: a read's bases that differ from the truth where the
+  simulation drew it;
 - ``placed_off_truth``: reads placed elsewhere than where the simulation
   drew them from.
 
@@ -219,6 +221,19 @@ def clean_spans(truth, draft, contig, start, length: int,
             continue
         ok[i] = np.array_equal(t[a:b], d[a:b])
     return ok
+
+
+def substitutions(truth, contig, start, reads, reverse: bool) -> np.ndarray:
+    """Bases of each read that differ from the truth where it was drawn,
+    ``truth[contig][start : start + L]`` (the read reverse-complemented
+    first where it was drawn from the reverse strand)."""
+    comp = np.array([3, 2, 1, 0, N_CODE], np.int8)
+    L = reads.shape[1]
+    out = np.zeros(len(start), np.int64)
+    for i, (c, s) in enumerate(zip(contig, start)):
+        r = comp[reads[i]][::-1] if reverse else reads[i]
+        out[i] = int((r != truth[c][int(s) : int(s) + L]).sum())
+    return out
 
 
 def placed_off_truth(offsets, contig, start, strand_want, aligned, pos,

@@ -11,6 +11,11 @@ iteration or a run can have:
   read placed one base off; each op's output off by a part in a thousand,
   or by one in an integer output).
 
+A configuration of two libraries (the fragment library and an RF jump
+library) is held the same way through a p-iteration, a u-iteration on the
+jump library and a whole run, and false with a jump mate placed one base
+off or the jump library's ``is_reverse`` ignored.
+
 The exchange between chips is not among them: every cell takes one chip.
 The controls are read on the card, at the cells' own sizes, by
 ``port_bench/readings.py``.
@@ -19,13 +24,14 @@ The controls are read on the card, at the cells' own sizes, by
 import dataclasses
 import functools
 import json
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from port_bench.harness import capture, inputs, registry, tracing
 from port_bench.harness import cell as cellmod
-from port_bench.harness import registry
 
 PB = Path(__file__).resolve().parents[1]
 SMALL = {"fill_kwargs": {"max_scan_lengths": 16, "instance_batch": 16},
@@ -50,9 +56,27 @@ def tiny_cell(traffic: str, limits_of: str) -> registry.Cell:
                     {"name": tr["metric"], "unit": "s"}])
 
 
-def run_iteration(traffic="p_iter", seed=123456789012):
-    return cellmod.run_cell(tiny_cell(traffic, "ecoli.p"), seed, 0.0, False,
-                            device="cpu")
+# an RF jump library, its insert scaled to the test's 40 kb genome
+JUMP = {"simulation": {"read_len": 101, "insert_mean": 1500,
+                       "insert_sd": 150, "coverage": 10.0,
+                       "error_rate": 0.005, "orientation": "RF"},
+        "library": {"avg_insert_size": 1500, "max_read_length": 101,
+                    "is_reverse": 1}}
+
+
+def two_library_cell(traffic: str, limits_of: str) -> registry.Cell:
+    """The test-size cell with the jump library after the fragment one; its
+    u-iteration on the jump library (``"lib": 1``)."""
+    cell = tiny_cell(traffic, limits_of)
+    cell.config["further_libraries"] = [JUMP]
+    if traffic == "u_iter":
+        cell.traffic["lib"] = 1
+    return dataclasses.replace(cell, name=f"tiny2.{cell.traffic['mode']}")
+
+
+def run_iteration(traffic="p_iter", seed=123456789012, cell=None):
+    cell = cell or tiny_cell(traffic, "ecoli.p")
+    return cellmod.run_cell(cell, seed, 0.0, False, device="cpu")
 
 
 def unchanged(monkeypatch):
@@ -102,6 +126,44 @@ def misplaced(monkeypatch):
         return out
 
     monkeypatch.setattr(core, "unpack_out", off)
+
+
+def jump_misplaced(monkeypatch):
+    """The aligner places the jump library's mates one base off."""
+    from figbird_tpu_torch import pipeline
+    from figbird_tpu_torch.align import core
+
+    align, unpack = pipeline.Pipeline._align_lib, core.unpack_out
+
+    def off(packed):
+        out = unpack(packed)
+        out["pos"] = out["pos"] + 1
+        return out
+
+    def jump_off(self, genome, lib_i, *args, **kwargs):
+        if not self.cfg.read_pairs[lib_i].is_jump:
+            return align(self, genome, lib_i, *args, **kwargs)
+        core.unpack_out = off
+        try:
+            return align(self, genome, lib_i, *args, **kwargs)
+        finally:
+            core.unpack_out = unpack
+
+    monkeypatch.setattr(pipeline.Pipeline, "_align_lib", jump_off)
+
+
+def not_reversed(monkeypatch):
+    """The pipeline keeps an ``is_reverse`` library as it was read."""
+    from figbird_tpu_torch import pipeline
+
+    init = pipeline.Pipeline.__init__
+
+    def as_read(self, cfg, genome, libs, *args, **kwargs):
+        init(self, cfg, genome, libs, *args, **kwargs)
+        self.libs = [pair if lib.is_reverse else own for own, pair, lib in
+                     zip(self.libs, libs, cfg.read_pairs)]
+
+    monkeypatch.setattr(pipeline.Pipeline, "__init__", as_read)
 
 
 def op_off(name: str, how):
@@ -210,3 +272,50 @@ def test_a_whole_run(small_cli, monkeypatch, fault):
         "soft_score_err", "hard_score_err", "counts_err",
         "candidate_scores_off", "consensus_off"}
     assert res["correct"] is (fault is None), res["checks"]
+
+
+@pytest.mark.parametrize("traffic", ["p_iter", "u_iter"])
+def test_two_libraries_as_they_are_are_correct(traffic):
+    res = run_iteration(cell=two_library_cell(traffic, "ecoli.p"))
+    assert res["correct"] is True, res["checks"]
+    assert set(res["checks"]) == set(ITERATION_CHECKS)
+
+
+@pytest.mark.parametrize("fault", [jump_misplaced, not_reversed],
+                         ids=lambda f: f.__name__)
+def test_a_broken_jump_library_is_not_correct(monkeypatch, fault):
+    fault(monkeypatch)
+    res = run_iteration(cell=two_library_cell("u_iter", "ecoli.p"))
+    assert res["correct"] is False
+    off = res["checks"]["placed_off_truth"]
+    assert off["value"] > off["limit"]
+
+
+@pytest.mark.parametrize("fault", [None, jump_misplaced, not_reversed],
+                         ids=lambda f: getattr(f, "__name__", "as_it_is"))
+def test_two_libraries_in_a_whole_run(small_cli, monkeypatch, fault):
+    if fault is not None:
+        fault(monkeypatch)
+    res = cellmod.run_cell(two_library_cell("cli_run", "ecoli.run"), 78,
+                           0.0, False, device="cpu")
+    assert res["correct"] is (fault is None), res["checks"]
+
+
+# stages the pipeline adds to its timer inside its align stages
+NESTED = {"index_build", "aligner_init", "pair_table"}
+
+
+def test_a_run_record_holds_stage_seconds_by_mode(small_cli, tmp_path):
+    cell = two_library_cell("cli_run", "ecoli.run")
+    unit = capture.RunUnit(cell, inputs.simulate(cell.config, 79), tmp_path,
+                           device="cpu")
+    t0 = time.perf_counter()
+    rec = unit()
+    wall = time.perf_counter() - t0
+    modes = {k.split(":")[0] for k in rec.stages}
+    assert modes == {"p", "u"}, rec.stages
+    assert sum(v for k, v in rec.stages.items()
+               if k.split(":")[1] not in NESTED) <= wall
+    trace = tracing.Trace("run", stages=[rec.stages])
+    assert trace.stage_mean("run", "u:fill") > 0
+    assert trace.stage_mean("run", "p:align") > 0

@@ -92,3 +92,32 @@ def test_a_new_cell_config_traffic_and_metric_are_files(tmp_path):
     (pb / "roofline" / "new_op.py").write_text(
         "def count(x):\n    return 1, 1\n")
     assert "new_op" in registry.roofline_ops(root)
+
+
+def nested_ranges(rng, a: int, b: int, depth: int, out: list) -> list:
+    """Ranges of one thread in [a, b): one after another, each holding
+    more down to ``depth``; ends may touch the next start."""
+    t = a
+    while depth and t < b - 2:
+        s = rng.randint(t, min(b - 2, t + (b - a) // 6))
+        e = rng.randint(s + 1, min(b, s + (b - a) // 3 + 1))
+        out.append((f"r{len(out)}", s, e))
+        nested_ranges(rng, s, e, depth - 1, out)
+        t = e + rng.randint(0, 3)
+    return out
+
+
+@pytest.mark.parametrize("closed", [True, False])
+def test_the_innermost_range_is_the_one_a_full_scan_finds(closed):
+    """``_Ranges.at`` against the scan of every range (the least long one
+    holding the time)."""
+    import random
+
+    rng = random.Random(5)
+    ranges = nested_ranges(rng, 0, 10_000, 4, [])
+    found = tracing._Ranges(ranges)
+    assert len(ranges) > 100
+    for t in range(-5, 10_010, 7):
+        inner = [(b - a, n) for n, a, b in ranges
+                 if a <= t < b or (closed and t == b)]
+        assert found.at(t, closed) == (min(inner)[1] if inner else None)
