@@ -25,7 +25,12 @@ Phases (every one must pass; none is caught):
    least time the card could take for the same work (``bound_ms``).  K5 at
    the aligner's two shapes, its cheap pass (32,768 reads x 8 candidates,
    mixed as the main path's are) and its full pass (x 32, scattered), all
-   five outputs bit-equal and two launches bit-equal.
+   five outputs bit-equal and two launches bit-equal.  The overlap bonus
+   (``csrc/overlap.cu``, the partial EM's) at the scan's instance batch,
+   128 reads, L 101, cap 24, on tests/test_torch_overlap.py's instances:
+   bonus, saved_l and saved_r bit-equal to the plain version on the same
+   card tensors, two launches bit-equal, timed the same way, with the
+   host's time to issue one call of each; no library chain.
    The unmapped mode's shapes (every read at every position of the
    window): the u main path's own bucket, 128 reads x gap bucket 512, at
    both its width classes (Wp 613 and 229), and the full-width buckets of
@@ -48,7 +53,7 @@ Phases (every one must pass; none is caught):
    compared when the card phases are done.
 4. main path — bench.py's E. coli-scale dataset (4.6 Mb, 50 gaps, 2x101 bp,
    insert 200, 10x) through Pipeline.run_iteration("p", 0) on the card, at
-   the production default (default fill_kwargs: all five kernels launched)
+   the production default (default fill_kwargs: every kernel of the mode launched)
    and at exact_soft=False (the four kernels of that path launched), each
    with the launch counts set to 0 just before and read just after (K5's
    also by candidates a read): N
@@ -58,8 +63,8 @@ Phases (every one must pass; none is caught):
    the device's busy share.
 5. main path, unmapped — the same dataset through a fresh Pipeline's
    ``run_iteration("u", 0)`` at the default (bench.py's u-trial), the
-   launch counts set to 0 just before and read just after: all five
-   kernels launched, N reduced, filled-base accuracy >= 0.95; wall, fill
+   launch counts set to 0 just before and read just after: every kernel of the
+   mode launched, N reduced, filled-base accuracy >= 0.95; wall, fill
    stats and launches (also by shape) printed; then one
    ``reference_exact`` u-iteration, held to the same checks, and the
    number of its gap strings equal to the default's.  ``--profile`` adds
@@ -71,7 +76,7 @@ Phases (every one must pass; none is caught):
    evaluation on), then ``figbird_tpu_torch.__main__.main([cfg])`` in this
    process, the launch counts set to 0 just before and read just after:
    exit 0, the iterations a prefix of the two-library schedule cut only
-   where the N count stopped moving, all five kernels launched, N reduced,
+   where the N count stopped moving, every kernel of the mode launched, N reduced,
    filled-base accuracy of the combined gaps (Individual_gaps.txt) >= 0.95,
    the reference CLI's whole output tree, the final assembly equal to the
    last iteration's, Result.txt written; walls, stage times, launches by
@@ -88,8 +93,8 @@ Phases (every one must pass; none is caught):
    for every read with a candidate; each pass's wall and K5's launches by
    genome shard.  (b) ``run_iteration("p", 0)`` and a fresh Pipeline's
    ``run_iteration("u", 0)`` on a (reads 2, genome 2) mesh, code-range
-   shards, the launch counts set to 0 just before and read just after: all
-   five kernels launched; gap strings, gaptofill and contigs equal to
+   shards, the launch counts set to 0 just before and read just after: every
+   kernel of the mode launched; gap strings, gaptofill and contigs equal to
    phases 4 and 5's single-device default iterations; walls and launches
    by kernel and by shape.
 8. two processes — two workers on the card, each joined by
@@ -121,7 +126,7 @@ Phases (every one must pass; none is caught):
 10. large gaps — one library with a gap-length tail (1 Mb, 40 gaps from
    the simulator's lognormal, insert 600, 80x): ``run_iteration("p", 0)``
    then ``run_iteration("u", 0)`` on the card, the launch counts set to 0
-   just before each and read just after: all five kernels launched in the
+   just before each and read just after: every kernel of the mode launched in the
    u-iteration, N reduced, at least 4 of its gap plans with the large-gap
    flag and K1 launched at 1,024 reads; walls, stages, fill stats,
    launches by shape and accuracy on the large gaps and the rest printed,
@@ -140,10 +145,10 @@ Phases (every one must pass; none is caught):
    reads, 5,000 gaps): simulate, a cold and a warm p-iteration (equal N and
    gap strings), a u-iteration, three sample gaps on the card and the CPU
    (equal); N before as simulated (466,755), N reduced in each iteration,
-   accuracy >= 0.95 against the truth, all five kernels launched.
+   accuracy >= 0.95 against the truth, every kernel of the mode launched.
 12. the paths no earlier phase reaches, each printed with its wall.  (a)
    exact_soft="auto" and "hybrid" on bench.py's dataset: N reduced,
-   accuracy >= 0.95, all five kernels launched, the gap strings equal to
+   accuracy >= 0.95, every kernel of the mode launched, the gap strings equal to
    the default's counted ("auto": its escalated lanes).  (b) Phase 6's
    dataset under ``default: 0`` (serial numbers reversed, num_itr_* set):
    the ``# itr`` lines equal USER_SCHEDULE, the tree complete, N reduced.
@@ -156,7 +161,7 @@ Phases (every one must pass; none is caught):
    capped at BUCKET_SCAN lengths on both: equal.  (e) The contig-range
    path past the replicated budget: a (reads 1, genome 2) mesh of the card
    repeated, ``HOST_FLAT_BUDGET`` below the genome's length: no device
-   statistics, the model learned on the host, all five kernels launched,
+   statistics, the model learned on the host, every kernel of the mode launched,
    the p-iteration equal to phase 4's.  (d) runs before phase 11, so that
    its CPU side overlaps phase 11.
    On the kernels line every row carries the chr14 and 3,072-bucket runs'
@@ -200,7 +205,7 @@ if not torch.cuda.is_available():
 from figbird_tpu_torch import config, dtypes, ops, simulate  # noqa: E402
 from figbird_tpu_torch.fill import em  # noqa: E402
 from figbird_tpu_torch.ops import _build  # noqa: E402
-from figbird_tpu_torch.ops import band, align_score  # noqa: E402
+from figbird_tpu_torch.ops import band, align_score, overlap  # noqa: E402
 from figbird_tpu_torch.pipeline import Pipeline  # noqa: E402
 from time_align import align_bound, align_inputs  # noqa: E402
 
@@ -211,7 +216,12 @@ from chr14_scale_torch import Captured  # noqa: E402
 from time_bands import band_inputs  # noqa: E402
 from time_counts import cuda_ms  # noqa: E402
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from test_torch_overlap import overlap_batch  # noqa: E402
+
 DEV = torch.device("cuda", 0)
+# the kernels a u-iteration launches: all but the partial EM's overlap bonus
+U_KERNELS = tuple(k for k in ops.LAUNCHES if k != "overlap")
 ALIGN_KEYS = ("score", "pos", "strand", "clip_start", "clip_end", "aligned",
               "unique", "n_mis", "second", "alen", "hit_overflow", "indel")
 # published peaks of one H100 SXM: device memory rate, and f32 outside the
@@ -228,6 +238,7 @@ SHIFT, CUT = em._CASCADE_SHIFT, em._CASCADE_CUT
 # gap bucket)
 SCAN_SHAPE = (495, 128, 101, 128)
 FINALIZE_BATCH = 64
+OVERLAP_CAP = 24  # the overlap bonus's candidate cap (FillConfig.bonus_cap)
 PARTIAL_BATCHES = (128, 256)
 ALIGN_GENOME = 4_600_000
 ALIGN_SHAPES = ((32768, 8, "main"), (32768, 32, "scattered"))
@@ -475,6 +486,62 @@ def check_align(g):
     return rows[0]
 
 
+def host_us(fn, n: int = 50) -> float:
+    """The host's time to return from one call of ``fn``, in us: the median
+    of ``n`` calls, each after the card has gone idle."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[n // 2]
+
+
+def check_overlap():
+    """The overlap bonus at the main path's scan batch (SCAN_SHAPE's
+    instances, reads and L; cap 24): bonus, saved_l and saved_r bit-equal
+    to the plain version on the same card tensors (tolerance 0), two
+    launches bit-equal; CUDA-event times in the order plain, kernel,
+    kernel, plain, and the host's time to issue one call of each.  No one
+    PyTorch call computes the bonus, so there is no library time."""
+    I, P, L, _ = SCAN_SHAPE
+    batch = overlap_batch(0, I, P, L, OVERLAP_CAP, device=DEV)
+    cfg, inst, accept, pos_gap = batch
+
+    def kernel():
+        return overlap.overlap_bonus(*batch)
+
+    def plain():
+        return overlap.overlap_bonus_plain(*batch)
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    err = float((got[0] - want[0]).abs().max())
+    n_good = int((got[1] >= 0).sum())
+    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    k_host, p_host = host_us(kernel), host_us(plain)
+    n_b = nbytes(accept, pos_gap, *inst.values()) + I * 12  # 3 outputs
+    bound_ms, bound_by = bound(n_b, 0)
+    log(f"overlap {I} instances x {P} reads x {L}, cap {OVERLAP_CAP}: "
+        f"bit-equal {equal}, repeat bit-equal {repeat}, {n_good} saved "
+        f"pairs, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library none, "
+        f"host {k_host:.1f} us a call against {p_host:.1f} us, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({n_b / 1e6:.2f} MB)")
+    if not (equal and repeat):
+        raise AssertionError(f"overlap disagrees with its plain version "
+                             f"(bonus max abs err {err}, repeat {repeat})")
+    return dict(name="overlap", route="cuda",
+                source="figbird_tpu_torch/csrc/overlap.cu",
+                replaces="figbird_tpu/fill/em.py:786", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                host_us=k_host, plain_host_us=p_host)
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes."""
     g = torch.Generator(device=DEV).manual_seed(0)
@@ -596,6 +663,7 @@ def phase_kernels():
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=library_ms))
     rows.append(check_align(g))
+    rows.append(check_overlap())
     # K2 and K3 at every instance batch the main path sends them, and K3's
     # K form beside its gap-string form (timed at the scan's batch too)
     check_bands(b_in, bw, f"banded, {I} instances", ("K form",))
@@ -940,7 +1008,7 @@ def busy_share(sim, wall_plain, mode="p"):
     ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
     # the eight largest, then every hand-written kernel below them
     ours = ("band_core::kernel", "cascade_kernel", "fold_kernel",
-            "align_score::kernel")
+            "align_score::kernel", "overlap::kernel")
     for i, (name, (t, n)) in enumerate(ranked):
         if i < 8 or any(k in name for k in ours):
             log(f"profile default {mode}:   {t / 1e3:8.1f} ms {n:6d} x "
@@ -983,9 +1051,9 @@ def phase_main(sim, profile_run: bool):
 
 def phase_main_unmapped(sim, profile_run: bool):
     """bench.py's u-trial: a fresh Pipeline's u-iteration at the default,
-    all five kernels launched, N reduced; then one reference_exact
+    every kernel of the mode launched, N reduced; then one reference_exact
     u-iteration and its gap strings against the default's."""
-    all5 = tuple(ops.LAUNCHES)
+    all5 = U_KERNELS
     _, wall, s_def, _ = run_main(sim, "u default", {}, all5, "u",
                                  keep=True)
     by_shape = dict(ops.LAUNCHES_BY_SHAPE)
@@ -1259,8 +1327,8 @@ def phase_mesh_aligners(sim):
 def phase_mesh_iterations(sim):
     """(b) The p-iteration and a fresh Pipeline's u-iteration on a
     (reads 2, genome 2) mesh, code-range shards, each with the launch
-    counts set to 0 just before and read just after: all five kernels
-    launched; gap strings, gaptofill and contigs equal to phases 4 and 5's
+    counts set to 0 just before and read just after: every kernel of the
+    mode launched; gap strings, gaptofill and contigs equal to phases 4 and 5's
     single-device default iterations.  Returns the launches by kernel of
     the p-iteration and by (kernel, reads, positions) of the u-iteration."""
     from figbird_tpu_torch.parallel import make_mesh
@@ -1282,7 +1350,8 @@ def phase_mesh_iterations(sim):
         by_c = dict(sorted(align_score.LAUNCHES_BY_C.items()))
         assert_runs_equal(run_record(pipe, st), SINGLE[mode],
                           f"mesh {mode}-iteration")
-        missing = [k for k, n in launches.items() if n == 0]
+        missing = [k for k, n in launches.items()
+                   if n == 0 and (mode == "p" or k in U_KERNELS)]
         assert not missing, f"kernels not launched on the mesh: {missing}"
         log(f"mesh {mode}-iteration on {mesh.shape} (code-range): wall "
             f"{wall:.2f}s, N {st.n_before} -> {st.n_after}, "
@@ -1669,7 +1738,7 @@ def phase_large_gap():
     at_3072 = {k: n for k, n in by_shape.items() if k[1] == 3072}
     log(f"large-gap u: {n_large} plans with the large-gap flag; launches at "
         f"1,024 reads {at_1024}; at 3,072 reads {at_3072 or 'none'}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in U_KERNELS if launches[k] == 0]
     assert not missing, f"large-gap u: kernels not launched: {missing}"
     assert st.n_after < st.n_before, "large-gap u: N not reduced"
     assert n_large >= 4, f"large-gap u: {n_large} large-gap plans"
@@ -1752,7 +1821,7 @@ def by_shape_of(record: dict) -> dict:
 # ---------------------------------------------------------------- phase 12
 def phase_tiers(sim) -> None:
     """(a) ``exact_soft="auto"`` and ``"hybrid"`` on bench.py's dataset on
-    the card: all five kernels launched, N reduced, accuracy >= 0.95, and
+    the card: every kernel of the mode launched, N reduced, accuracy >= 0.95, and
     the number of gap strings equal to the default's (phase 4) printed;
     ``"auto"``'s escalated lanes printed."""
     all5 = tuple(ops.LAUNCHES)
@@ -1951,7 +2020,7 @@ def phase_flat_budget(sim) -> None:
     genome 2) mesh of ``cuda:0`` repeated, ``align.core.HOST_FLAT_BUDGET``
     below bench.py's genome length: the aligner keeps no replicated flat
     (``supports_device_stats`` False), the model is learned on the host,
-    all five kernels launch, and the p-iteration's gap strings, gaptofill
+    every kernel of the mode launches, and the p-iteration's gap strings, gaptofill
     and contigs equal phase 4's single-device iteration."""
     from figbird_tpu_torch import pipeline
     from figbird_tpu_torch.align import core

@@ -8,7 +8,8 @@ carries a leading dimension I.  Both placements run on four kernels
 consensus (K3), the soft-count cascade (K1: the exact 6-level cascade of the
 production default, or a ``soft_levels``-deep mini-cascade) and the
 raw-weight count fold (K4: the plain-f32 soft accumulate of ``soft_levels ==
-1``, the unmapped hard counts and the finalize counts).  The partial mode
+1``, the unmapped hard counts and the finalize counts); the partial mode's
+overlap bonus is one more kernel (``ops.overlap``).  The partial mode
 places reads in two read-length bands at the gap edges; the unmapped mode
 scores every read at every position of the window, both strands' factors,
 and iterates until its consensus is stable (the reference's ``while_loop``,
@@ -26,10 +27,10 @@ import torch
 from ..ops.band import CASCADE_GROUP as _CASCADE_GROUP
 from ..ops.band import (MASKED, band_score_hard, band_score_soft,
                         cascade_counts, fold_counts, level_weight)
+from ..ops.overlap import _BIG, overlap_bonus, shift_left
 
 LN10 = float(np.log(10.0))
 NEG = -1e30
-_BIG = 1 << 20
 
 # Cascade constants (reference em.py:636-646).  Invariant: a row NOT selected
 # at level k (total_k <= TAU = e^(CUT-SHIFT)) has every contribution below
@@ -112,15 +113,6 @@ def _take(x: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
     """x[i, start[i] : start[i] + size] along dim 1 for every instance i."""
     idx = start.long()[:, None] + torch.arange(size, device=x.device)
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
-
-
-def shift_left(x: torch.Tensor, off: torch.Tensor, fill) -> torch.Tensor:
-    """out[..., j] = x[..., j + off] (``fill`` beyond the last column)."""
-    L = x.shape[-1]
-    xp = torch.cat([x, torch.full(x.shape[:-1] + (L + 1,), fill,
-                                  dtype=x.dtype, device=x.device)], -1)
-    idx = off.long()[..., None] + torch.arange(L, device=x.device)
-    return xp.gather(-1, idx)
 
 
 def compute_probs_gap(counts: torch.Tensor) -> torch.Tensor:
@@ -391,136 +383,6 @@ def _coverage_band(cfg: FillConfig, leg, lens, p0):
     return out
 
 
-def _extract_rows(x, start, L: int):
-    """x (I, N) rows padded with 5; returns x[i, start[i, r] + t] (I, R, L)."""
-    I, N = x.shape
-    xp = torch.cat([x, torch.full((I, L), 5, dtype=x.dtype,
-                                  device=x.device)], 1)
-    idx = start.long()[..., None] + torch.arange(L, device=x.device)
-    return xp.gather(1, idx.reshape(I, -1)).reshape(idx.shape)
-
-
-def _detect_overlap_partial(cfg: FillConfig, inst, accept, pos_gap):
-    """detect_overlap_gapestimate, batched: (bonus (I,), saved_l, saved_r).
-
-    +300 perfect spanning read; +30*max_overlap verified left x right read
-    overlap; -100 false overlap (see the reference for the fine print).
-    """
-    bonus_cap = min(cfg.bonus_cap, cfg.P)
-    pr, p_len, p_match = inst["pr"], inst["p_len"], inst["p_match"]
-    gl = inst["gap_len"][:, None]
-    sl = inst["side_limit"][:, None]
-    I, P, L = pr.shape
-    dev = pr.device
-    acc = accept & inst["p_valid"]
-
-    reach = torch.minimum(pos_gap + p_len, gl) - 1
-    leftish = (p_match == 1) | (p_match == 4) | (pos_gap < 0)
-    l_max = torch.where(acc & leftish, reach, -_BIG).max(dim=1).values
-    start = torch.clamp_min(pos_gap, 0)
-    r_min = torch.where(acc & ~leftish, start, _BIG).min(dim=1).values
-    l_max = torch.where(l_max == -_BIG, -1, l_max)
-    r_min = torch.where(r_min == _BIG, inst["gap_len"], r_min)
-
-    tmpl = inst["tmpl"]
-    u = torch.arange(L, device=dev)
-
-    def _flank_frac(f, rch, tch, thresh):
-        inwin = u < f[..., None]
-        mis = (inwin & (rch != tch)).sum(dim=-1)
-        return mis <= thresh * f
-
-    # left-flank fragment: read chars at gap coords [-f, 0) vs the flank
-    f_l = torch.minimum(torch.clamp_min(-pos_gap, 0), sl)
-    rch_l = shift_left(pr, torch.clamp(-f_l - pos_gap, 0, L), -1)
-    tch_l = _extract_rows(tmpl, torch.clamp(cfg.WL - f_l, 0, cfg.W - 1), L)
-    ok_l4 = (f_l >= 4) & _flank_frac(f_l, rch_l, tch_l, 0.2 - 1e-9)
-    ok_l8 = (f_l >= 8) & _flank_frac(f_l, rch_l, tch_l, 0.08)
-    # right-flank fragment from read coord gl - p vs the flank prefix
-    startr = gl - pos_gap
-    f_r = torch.clamp(torch.minimum(sl, p_len - startr), 0, L)
-    rch_r = shift_left(pr, torch.clamp(startr, 0, L), -1)
-    tch_r = _extract_rows(
-        tmpl, torch.clamp(cfg.WL + gl, 0, cfg.W - 1).expand(I, P), L)
-    startr_ok = (startr >= 0) & (startr <= p_len)
-    ok_r4 = (f_r >= 4) & startr_ok & _flank_frac(f_r, rch_r, tch_r,
-                                                 0.2 - 1e-9)
-    ok_r8 = (f_r >= 8) & startr_ok & _flank_frac(f_r, rch_r, tch_r, 0.08)
-
-    # perfect spanning read
-    spans = acc & (pos_gap < 0) & (pos_gap + p_len > gl)
-    perfect = (spans & ok_l8 & ok_r8).any(dim=1)
-
-    # left x right overlap verification
-    lc = acc & (pos_gap < 0) & (reach >= r_min[:, None]) \
-        & (pos_gap + p_len <= gl)
-    rc_n = acc & (pos_gap > 0) & (pos_gap <= l_max[:, None])
-    rc_sm = acc & (pos_gap < 0) & (pos_gap + p_len > gl) \
-        & ((p_match == 2) | (p_match == 3))
-    rc = rc_n | rc_sm
-    if bonus_cap >= P:  # read-order enumeration (reference scan order)
-        li = ri = torch.arange(P, device=dev).expand(I, P)
-        lval, rval = lc, rc
-    else:
-        lkey = torch.where(lc, reach, -_BIG)
-        rkey = torch.where(rc, -torch.where(rc_sm, pos_gap + (1 << 10),
-                                            start), -_BIG)
-        li = torch.argsort(-lkey, dim=1, stable=True)[:, :bonus_cap]
-        ri = torch.argsort(-rkey, dim=1, stable=True)[:, :bonus_cap]
-        lval, rval = lc.gather(1, li), rc.gather(1, ri)
-    cap_l, cap_r = li.shape[1], ri.shape[1]
-    p1 = pos_gap.gather(1, li)[:, :, None]
-    l1 = p_len.gather(1, li)[:, :, None]
-    p2 = pos_gap.gather(1, ri)[:, None, :]
-    l2 = p_len.gather(1, ri)[:, None, :]
-    sm2 = rc_sm.gather(1, ri)[:, None, :]
-    glb = gl[:, :, None]
-    diff_gap = torch.clamp_min(p1 + l1 - glb, 0)
-    ov = (p1 + l1 - 1) - p2 + 1 - diff_gap
-    pair_ok = lval[:, :, None] & rval[:, None, :] \
-        & (li[:, :, None] != ri[:, None, :]) & (ov >= 5)
-
-    xabs = torch.where(sm2, -p2, 0)
-    cmp_len = ov - xabs
-    a1s = l1 - ov + xabs - diff_gap
-    a2s = xabs
-    len_ok = (cmp_len > 0) & (a1s >= 0) & (a2s + cmp_len <= l2)
-    flank_ok = ok_l4.gather(1, li)[:, :, None] & ok_r4.gather(1, ri)[:, None, :]
-
-    rows_l = pr.gather(1, li[..., None].expand(I, cap_l, L))   # (I, cl, L)
-    rows_r = pr.gather(1, ri[..., None].expand(I, cap_r, L))   # (I, cr, L)
-    c1 = shift_left(rows_l[:, :, None, :].expand(I, cap_l, cap_r, L),
-                    torch.clamp(a1s, 0, L), -1)
-    c2 = shift_left(rows_r, torch.clamp(a2s[:, 0, :], 0, L), -2)
-    inwin = u < cmp_len[..., None]
-    mism = (inwin & (c1 != c2[:, None])).sum(dim=-1)
-    cand = pair_ok & flank_ok & len_ok
-    thr = 0.1 * torch.clamp_min(cmp_len, 1)
-    good = cand & (mism <= thr)
-    bad = cand & (mism > thr)
-    max_ov = torch.where(good, cmp_len, 0).reshape(I, -1).max(dim=1).values
-    any_false = bad.reshape(I, -1).any(dim=1)
-
-    has_rm = r_min <= l_max
-    bonus = torch.where(
-        perfect | ((inst["perfect_gap"] == 1) & (inst["orig_gap"] <= 20)
-                   & (inst["gap_len"] == inst["perfect_gaplen"])),
-        300.0,
-        torch.where(
-            has_rm & ((~any_false & (max_ov >= 5))
-                      | (any_false & (max_ov >= 10))),
-            30.0 * max_ov,
-            torch.where(has_rm & (any_false | (max_ov < 5)), -100.0, 0.0)))
-    # saved pair: FIRST strict maximum in scan order
-    flat_arg = torch.where(good, cmp_len, -1).reshape(I, -1).argmax(dim=1)
-    gi, gj = flat_arg // cap_r, flat_arg % cap_r
-    has = good.reshape(I, -1).any(dim=1)
-    saved_l = torch.where(has, li.gather(1, gi[:, None])[:, 0], -1)
-    saved_r = torch.where(has, ri.gather(1, gj[:, None])[:, 0], -1)
-    return bonus.to(torch.float32), saved_l.to(torch.int32), \
-        saved_r.to(torch.int32)
-
-
 def _counts_flank(inst):
     """Flank one-hots outside the gap zone: (I, W, 5)."""
     tmpl = inst["tmpl"]
@@ -589,8 +451,8 @@ def _place_partial(cfg: FillConfig, inst, model, probs, eprobs):
         & inst["p_valid"]
     valid = accept.sum(dim=1)
 
-    bonus, saved_l, saved_r = _detect_overlap_partial(cfg, inst, accept,
-                                                      pos_h)
+    # the overlap bonus: one kernel launch on the card (ops.overlap)
+    bonus, saved_l, saved_r = overlap_bonus(cfg, inst, accept, pos_h)
     return dict(counts=counts, likelihood=ml_soft + bonus, accept=accept,
                 pos=pos_h, valid=valid, saved_l=saved_l, saved_r=saved_r,
                 prec=prec)

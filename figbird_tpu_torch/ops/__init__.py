@@ -3,13 +3,14 @@
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one only where it launched its CUDA kernel (never for the plain
 version, which it runs for CPU tensors).  ``LAUNCHES_BY_SHAPE`` splits the
-counts of K1-K4 by (kernel, reads, positions) of the launch.
+counts of K1-K4 by (kernel, reads, positions) of the launch, and the overlap
+bonus's by ("overlap", reads, candidate list length).
 """
 
 from collections import Counter
 
 LAUNCHES = {"cascade": 0, "band_soft": 0, "band_hard": 0, "fold": 0,
-            "align_score": 0}
+            "align_score": 0, "overlap": 0}
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
 

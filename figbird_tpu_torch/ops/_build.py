@@ -39,6 +39,7 @@ ENTRY = {
     "fold": ("fold", "fold_launch", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "cascade": ("cascade", "cascade_launch",
                 (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+    "overlap": ("overlap", "overlap_launch", (_P,) * 15 + (_I,) * 6 + (_P,)),
 }
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRY.values()))
 # no --use_fast_math and no -ftz=true: the soft-pass kernel needs precise

@@ -379,7 +379,9 @@ def run(genome_gb: float = DEFAULT_GB, coverage: float = DEFAULT_COVERAGE,
                        if not rec["k5_by_shard"].get(str(g))]
             assert not missing, f"{mode}: K5 not launched on shards {missing}"
             if rec["filled"]:
-                idle = [k for k, n in rec["launches"].items() if n == 0]
+                # a u-iteration runs no partial EM, so no overlap bonus
+                idle = [k for k, n in rec["launches"].items()
+                        if n == 0 and (mode == "p" or k != "overlap")]
                 assert not idle, f"{mode}: kernels not launched: {idle}"
     return chr14._jsonable(out)
 

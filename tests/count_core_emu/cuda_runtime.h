@@ -1,9 +1,10 @@
 // A stand-in for the CUDA runtime header, for running csrc/count_core.cuh,
-// csrc/band_core.cuh and csrc/align_score.cu on the CPU: the qualifiers
-// vanish, a block's threads are host threads, __syncthreads() is a barrier
-// of theirs, a warp's collectives (__syncwarp, __ballot_sync, __shfl_sync)
-// a barrier of its 32, and shared memory is one array.  The byte-permute
-// and funnel-shift intrinsics have CUDA's semantics.
+// csrc/band_core.cuh, csrc/align_score.cu and csrc/overlap.cu on the CPU:
+// the qualifiers vanish, a block's threads are host threads,
+// __syncthreads() is a barrier of theirs, a warp's collectives (__syncwarp,
+// __ballot_sync, __shfl_sync) a barrier of its 32, and shared memory is one
+// array.  The byte-permute and funnel-shift intrinsics and __fmul_rn have
+// CUDA's semantics.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -41,6 +42,8 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   return m;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// one f32 product, rounded to nearest (x86-64 SSE arithmetic)
+inline float __fmul_rn(float a, float b) { return a * b; }
 // lane src's var, every lane of the warp taking part
 inline int __shfl_sync(unsigned, int var, int src) {
   unsigned* v = warp_votes[threadIdx.y];

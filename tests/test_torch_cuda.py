@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from figbird_tpu_torch import ops
-from figbird_tpu_torch.ops import align_score, band
+from figbird_tpu_torch.ops import align_score, band, overlap
 from test_torch_counts import CUT, SHAPES, SHIFT, count_inputs
+from test_torch_overlap import overlap_batch, threshold_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -371,6 +372,93 @@ def test_e2e_align_batch_card_equals_cpu(dev):
     assert not cpu["aligned"].all() and cpu["aligned"].any()
 
 
+def _bonus_saved(out):
+    """The overlap bonus's three outputs as one f32 tensor (3, I)."""
+    bonus, saved_l, saved_r = out
+    return torch.stack([bonus, saved_l.float(), saved_r.float()])
+
+
+def _overlap_equal(batch):
+    """The kernel (one launch, outputs on the batch's device, their types)
+    bit-equal to the plain version on the same tensors; a second launch
+    bit-equal to the first."""
+    got, once = _launched("overlap", lambda: overlap.overlap_bonus(*batch))
+    assert once
+    want = overlap.overlap_bonus_plain(*batch)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.device == w.device
+        assert torch.equal(g, w), (g, w)
+    again = overlap.overlap_bonus(*batch)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return want
+
+
+# (I, P, L, bonus_cap): the main path's instance batch (495 x 128 x 101,
+# cap 24) and its short-read and read-order (cap = P) forms, one instance,
+# the 1,024-read bucket capped and in read order
+OVERLAP_SHAPES = [(495, 128, 101, 24), (495, 128, 24, 24),
+                  (495, 128, 101, 128), (1, 128, 101, 24), (1, 128, 24, 128),
+                  (8, 1024, 101, 24), (1, 1024, 101, 1024),
+                  (1, 1024, 24, 24)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("I,P,L,cap", OVERLAP_SHAPES)
+def test_overlap_bit_equal_to_plain(dev, I, P, L, cap, ties):
+    """The overlap-bonus kernel bit-equal to its plain version on random
+    batches (test_torch_overlap.overlap_batch: left, right, spanning and
+    soft-clipped reads, reads with many errors, rejected reads, padded
+    lanes, side limits 3, 4, 7, 8 and more, contig ends), with and without
+    ties in the candidate lists' keys."""
+    _overlap_equal(overlap_batch(31 + P + L + cap, I, P, L, cap, device=dev,
+                                 ties=ties))
+
+
+def test_overlap_at_the_thresholds(dev):
+    """Mismatches exactly at 0.1 cmp_len (cmp_len 10, 20, 30, 70) and one
+    past it, with plain and soft-clipped right reads, flank lengths of 3:
+    the kernel's f32 comparisons are the plain version's."""
+    bonus, _, _ = _overlap_equal(threshold_batch(dev))
+    assert (bonus > 0).sum() == 8 and (bonus == -100).sum() == 8
+
+
+@pytest.mark.parametrize("fill_kwargs", [{}, {"reference_exact": True}])
+def test_overlap_on_a_partial_pass(dev, monkeypatch, fill_kwargs):
+    """Every instance batch a p-iteration of a small simulated draft hands
+    the overlap bonus: the kernel bit-equal to the plain version on it.
+    At the default (the exact cascade), the kernel launches once a pass,
+    and K1 twice: half of K1's launches."""
+    from figbird_tpu_torch import config, simulate
+    from figbird_tpu_torch.fill import em
+    from figbird_tpu_torch.pipeline import Pipeline
+
+    sim = simulate.simulate(simulate.SimConfig(
+        genome_len=60_000, n_contigs=1, n_gaps=6, gap_len_range=(8, 60),
+        read_len=101, insert_mean=200, insert_sd=20, coverage=15,
+        error_rate=0.005, seed=3))
+    cfg = config.FigbirdConfig(
+        draft_genome="", output_folder="",
+        read_pairs=[config.ReadLibrary("", "", avg_insert_size=200,
+                                       max_read_length=101)],
+        parameters=config.Parameters(trim_len=0))
+    seen = []
+
+    def checked(*batch):
+        seen.append(batch[1]["pr"].shape)
+        return _overlap_equal(batch)
+
+    monkeypatch.setattr(em, "overlap_bonus", checked)
+    ops.reset_launches()
+    st = Pipeline(cfg, sim.draft, [(sim.reads1, sim.reads2)],
+                  fill_kwargs=fill_kwargs, aligner_kwargs={"batch_size": 4096},
+                  device=dev).run_iteration("p", 0)
+    assert seen and st.n_after < st.n_before
+    # _overlap_equal launches twice a call
+    assert ops.LAUNCHES["overlap"] == 2 * len(seen)
+    if not fill_kwargs:
+        assert 2 * len(seen) == ops.LAUNCHES["cascade"]
+
+
 def _each_kernel(dev):
     """Every wrapper once on ``dev`` at a small shape: (name, kernel
     output, plain version's output)."""
@@ -388,6 +476,7 @@ def _each_kernel(dev):
                             device=dev)
     cand = torch.as_tensor(rng.integers(0, 3900, (10, 4)).astype(np.int32),
                            device=dev)
+    ov = overlap_batch(25, 3, 16, 24, 4, device=dev)
     return [
         ("band_soft", band.band_score_soft(codes, valid, probs, eprobs, e_pos,
                                            16),
@@ -402,6 +491,8 @@ def _each_kernel(dev):
          align_score.score_candidates(flat, reads, cand, 2, -6, 4)["local"],
          align_score.score_candidates_plain(flat, reads, cand, 2, -6,
                                             4)["local"]),
+        ("overlap", _bonus_saved(overlap.overlap_bonus(*ov)),
+         _bonus_saved(overlap.overlap_bonus_plain(*ov))),
     ]
 
 
@@ -417,7 +508,7 @@ def test_kernels_launch_on_the_tensors_device():
     before = dict(ops.LAUNCHES)
     tol = {"band_soft": (1e-5, 1e-3), "band_hard": (1e-5, 1e-4),
            "fold": (2e-6, 0.0), "cascade": (2e-6, 0.0),
-           "align_score": (0.0, 0.0)}
+           "align_score": (0.0, 0.0), "overlap": (0.0, 0.0)}
     for name, got, want in _each_kernel(dev):
         torch.cuda.synchronize(dev)
         assert got.device == dev, name
@@ -433,6 +524,7 @@ def test_wrappers_refuse_mixed_devices(dev):
     before = dict(ops.LAUNCHES)
     codes, valid, probs, eprobs, e_pos, K, g, a, b, ln_et = _band_inputs(
         dev, 24, 1, 4, 8, 8)
+    cfg, inst, accept, pos_gap = overlap_batch(26, 2, 8, 24, 4, device=dev)
     for call in (
             lambda: band.band_score_soft(codes, valid.cpu(), probs, eprobs,
                                          e_pos, 8),
@@ -446,7 +538,8 @@ def test_wrappers_refuse_mixed_devices(dev):
             lambda: align_score.score_candidates(
                 torch.zeros(300, dtype=torch.int8, device=dev),
                 codes[0].cpu(), torch.zeros((4, 2), dtype=torch.int32,
-                                            device=dev), 2, -6, 4)):
+                                            device=dev), 2, -6, 4),
+            lambda: overlap.overlap_bonus(cfg, inst, accept.cpu(), pos_gap)):
         with pytest.raises(ValueError, match="more than one device"):
             call()
     assert dict(ops.LAUNCHES) == before
